@@ -1,0 +1,42 @@
+"""rgnir_torch: the RGNir analysis path in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of ``rgnir_tpu``'s analysis pass (white balance, NDVI/GNDVI/NDWI
+index maps, statistics, colormap renders). It imports neither JAX nor
+the JAX package. Entry point: :func:`analyze_image_auto`, on CUDA unless
+the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+from rgnir_torch.config import (
+    ALL_INDICES,
+    CustomIndex,
+    IndexConfig,
+    IndexKind,
+    WBConfig,
+    import_index_specs,
+    register_index,
+    registered_indices,
+)
+from rgnir_torch.ops.stats import IndexStats, index_stats, to_analyze_index_dict
+from rgnir_torch.pipeline.dispatch import analyze_image_auto
+from rgnir_torch.pipeline.fused import AnalyzeResult, analyze_image
+
+__all__ = [
+    "ALL_INDICES",
+    "AnalyzeResult",
+    "CustomIndex",
+    "IndexConfig",
+    "IndexKind",
+    "IndexStats",
+    "WBConfig",
+    "analyze_image",
+    "analyze_image_auto",
+    "import_index_specs",
+    "index_stats",
+    "register_index",
+    "registered_indices",
+    "to_analyze_index_dict",
+    "__version__",
+]

@@ -1,0 +1,29 @@
+"""Hand-written CUDA kernels of the analysis path and their wrappers.
+
+Each wrapper launches its kernel for a CUDA tensor and takes its plain
+PyTorch version for a CPU tensor, and counts its launches in its
+``launches`` attribute. Nothing builds at import.
+"""
+
+from rgnir_torch.kernels.fused import fused_analyze
+from rgnir_torch.kernels.hist import channel_histograms
+from rgnir_torch.kernels.pipeline import analyze_image_kernel
+from rgnir_torch.kernels.select import byte_hist, masked_median_rows, q24_tail
+
+# Every kernel wrapper, by the name its kernel carries in the records.
+WRAPPERS = {
+    "hist": channel_histograms,
+    "fused": fused_analyze,
+    "byte_hist": byte_hist,
+    "q24_tail": q24_tail,
+}
+
+__all__ = [
+    "WRAPPERS",
+    "analyze_image_kernel",
+    "byte_hist",
+    "channel_histograms",
+    "fused_analyze",
+    "masked_median_rows",
+    "q24_tail",
+]

@@ -1,0 +1,182 @@
+"""The fused analysis pass: the CUDA kernel and its plain version.
+
+Kernel: ``rgnir_torch/csrc/fused.cu``, in place of the TPU kernel
+``rgnir_tpu/kernels/fused.py:_fused_kernel`` with its exact "planes"
+render and ``round0_digit="q24"``. From one read of each pixel it
+gives the white-balanced frame, K index maps, per-kind sum, min, max
+and coverage count, the 50-bin histogram, the colormap renders and the
+round-0 byte histogram of the median select (whose top key byte is the
+render byte). Every kind is computed in full: a kind whose band pair
+swaps another's comes out as the exact negation anyway.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from rgnir_torch.color import get_lut
+from rgnir_torch.config import EPSILON, HIST_BINS, IndexKind
+from rgnir_torch.kernels._build import launch
+from rgnir_torch.ops.indices import band_indices
+from rgnir_torch.ops.stats import hist_edges, histogram_fixed_bins
+
+MAX_KINDS = 8  # kMaxKinds in csrc/fused.cu
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+_ARGTYPES = (_P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _I32, _I32,
+             _P, _P, _P, _P, _P, _P, _P, _P, _P)
+
+
+@dataclasses.dataclass
+class FusedOut:
+    """Outputs of the fused pass for B frames and K kinds."""
+
+    wb: torch.Tensor                 # (B, H, W, 3) uint8
+    idx: torch.Tensor                # (K, B, H, W) float32
+    rgb: Optional[torch.Tensor]      # (K, B, H, W, 3) uint8, with renders
+    sum: torch.Tensor                # (B, K) float64
+    min: torch.Tensor                # (B, K) float32
+    max: torch.Tensor                # (B, K) float32
+    above: torch.Tensor              # (B, K) int32, idx > threshold
+    hist50: Optional[torch.Tensor]   # (B, K, 50) int32, with hist
+    r0: torch.Tensor                 # (B, K, 256) int32, zero rows where not asked
+
+
+@functools.lru_cache(maxsize=64)
+def _tables(cmaps: Tuple[str, ...], device: torch.device):
+    """(K, 256, 3) uint8 LUTs and the (51,) float32 histogram edges on
+    ``device``, copied there once per kind set rather than per call."""
+    lut = np.ascontiguousarray(np.stack([get_lut(c)[:, :3] for c in cmaps]))
+    return (torch.as_tensor(lut, device=device),
+            torch.as_tensor(hist_edges(HIST_BINS, -1.0, 1.0), device=device))
+
+
+def fused_analyze_plain(
+    img: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+    kinds: Tuple[IndexKind, ...], with_renders: bool, with_hist: bool,
+    round0: Tuple[bool, ...],
+) -> FusedOut:
+    """The same function as elementwise PyTorch ops and reductions."""
+    x = img.to(torch.float32)                           # (B, H, W, 3)
+    lo = lo.to(torch.float32)[:, None, None, :]
+    span = hi.to(torch.float32)[:, None, None, :] - lo
+    v = (x - lo) / span * 255.0
+    v = torch.where(span > 0, v, torch.zeros_like(v))
+    wbf = torch.floor(v.clamp(0.0, 255.0))
+    luts = (_tables(tuple(k.cmap_name for k in kinds), img.device)[0].long()
+            if with_renders else None)
+    idx, rgb, r0 = [], [], []
+    for k, kind in enumerate(kinds):
+        ia, ib = band_indices(kind)
+        a, b = wbf[..., ia], wbf[..., ib]
+        q = ((a - b) / (a + b + EPSILON)).clamp(-1.0, 1.0)
+        idx.append(q)
+        byte = torch.floor((q + 1.0) * 128.0).to(torch.int64).clamp(max=255)
+        if with_renders:
+            rgb.append(luts[k][byte].to(torch.uint8))
+        counts = torch.zeros(q.shape[0], 256, dtype=torch.int64, device=q.device)
+        if round0[k]:
+            flat = byte.reshape(q.shape[0], -1)
+            counts.scatter_add_(1, flat, torch.ones_like(flat))
+        r0.append(counts.to(torch.int32))
+    idx_t = torch.stack(idx)                            # (K, B, H, W)
+    flat = idx_t.reshape(len(kinds), idx_t.shape[1], -1)
+    thr = torch.tensor([k.coverage_threshold for k in kinds],
+                       dtype=torch.float32, device=img.device)
+    return FusedOut(
+        wb=wbf.to(torch.uint8),
+        idx=idx_t,
+        rgb=torch.stack(rgb) if with_renders else None,
+        sum=flat.sum(dim=-1, dtype=torch.float64).T.contiguous(),
+        min=flat.amin(dim=-1).T.contiguous(),
+        max=flat.amax(dim=-1).T.contiguous(),
+        above=(flat > thr[:, None, None]).sum(dim=-1).to(torch.int32).T.contiguous(),
+        hist50=(
+            histogram_fixed_bins(idx_t, HIST_BINS, -1.0, 1.0).transpose(0, 1).contiguous()
+            if with_hist else None
+        ),
+        r0=torch.stack(r0, dim=1),
+    )
+
+
+def fused_analyze(
+    img: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    kinds: Sequence,
+    with_renders: bool = True,
+    with_hist: bool = True,
+    round0: Optional[Sequence[bool]] = None,
+) -> FusedOut:
+    """Fused pass over ``(B, H, W, 3)`` uint8 frames with ``(B, 3)``
+    white-balance bounds. ``round0`` picks the kinds whose round-0
+    histogram is counted (all by default).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel.
+    """
+    kinds = tuple(IndexKind.parse(k) for k in kinds)
+    nk = len(kinds)
+    round0 = (True,) * nk if round0 is None else tuple(bool(r) for r in round0)
+    if len(round0) != nk:
+        raise ValueError(f"round0 has {len(round0)} entries for {nk} kinds")
+    if img.device.type == "cpu":
+        return fused_analyze_plain(img, lo, hi, kinds, with_renders,
+                                   with_hist, round0)
+    if img.device.type != "cuda" or img.dtype != torch.uint8 or img.dim() != 4 \
+            or img.shape[-1] != 3:
+        raise ValueError(
+            f"expected (B, H, W, 3) uint8 on CUDA, got {tuple(img.shape)} "
+            f"{img.dtype} on {img.device}"
+        )
+    if not 1 <= nk <= MAX_KINDS:
+        raise ValueError(f"the fused kernel takes 1 to {MAX_KINDS} kinds, got {nk}")
+    dev = img.device
+    img = img.contiguous()
+    b, h, w, _ = img.shape
+    hw = h * w
+    bounds = torch.stack([lo, hi], dim=1).to(device=dev, dtype=torch.float32).contiguous()
+    luts, edges = _tables(tuple(k.cmap_name for k in kinds), dev)
+    bands = np.array([band_indices(k) for k in kinds], dtype=np.int32)
+    ia = np.ascontiguousarray(bands[:, 0])
+    ib = np.ascontiguousarray(bands[:, 1])
+    thr = np.array([k.coverage_threshold for k in kinds], dtype=np.float32)
+    r0mask = np.array(round0, dtype=np.int32)
+
+    wb = torch.empty_like(img)
+    idx = torch.empty(nk, b, h, w, dtype=torch.float32, device=dev)
+    rgb = (torch.empty(nk, b, h, w, 3, dtype=torch.uint8, device=dev)
+           if with_renders else None)
+    sums = torch.zeros(b, nk, dtype=torch.float64, device=dev)
+    mn = torch.full((b, nk), float("inf"), dtype=torch.float32, device=dev)
+    mx = torch.full((b, nk), float("-inf"), dtype=torch.float32, device=dev)
+    above = torch.zeros(b, nk, dtype=torch.int32, device=dev)
+    hist50 = (torch.zeros(b, nk, HIST_BINS, dtype=torch.int32, device=dev)
+              if with_hist else None)
+    r0 = torch.zeros(b, nk, 256, dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    launch("fused", "rgnir_fused", _ARGTYPES, (
+        img.data_ptr(), bounds.data_ptr(), luts.data_ptr(), edges.data_ptr(),
+        b, hw, nk, ia.ctypes.data, ib.ctypes.data, thr.ctypes.data,
+        r0mask.ctypes.data, int(with_renders), int(with_hist),
+        wb.data_ptr(), idx.data_ptr(), ptr(rgb), sums.data_ptr(),
+        mn.data_ptr(), mx.data_ptr(), above.data_ptr(), ptr(hist50),
+        r0.data_ptr(),
+    ), dev)
+    fused_analyze.launches += 1
+    return FusedOut(wb=wb, idx=idx, rgb=rgb, sum=sums, min=mn, max=mx,
+                    above=above, hist50=hist50, r0=r0)
+
+
+fused_analyze.launches = 0

@@ -1,0 +1,124 @@
+"""The kernel-backed analysis pass, in place of ``pipeline.fused.analyze_image``.
+
+histogram kernel -> white-balance bounds (O(256) tensor ops) -> fused
+kernel (WB, index maps, stats, 50-bin histogram, renders, round-0
+histogram) -> q24 radix select (two byte-histogram rounds and one tail
+pass that also gives the centred sum of squares). On CUDA tensors each
+step launches its kernel; on CPU tensors each takes its plain version,
+so the same composition runs in the CPU tests.
+Counterpart: ``rgnir_tpu/kernels/pipeline.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from rgnir_torch.config import ALL_INDICES, IndexKind, WBConfig
+from rgnir_torch.kernels.fused import fused_analyze
+from rgnir_torch.kernels.hist import channel_histograms
+from rgnir_torch.kernels.select import masked_median_rows
+from rgnir_torch.ops.indices import band_indices
+from rgnir_torch.ops.stats import IndexStats
+from rgnir_torch.ops.wb import wb_bounds_from_histogram
+from rgnir_torch.pipeline.fused import AnalyzeResult
+
+
+def _median_plan(kinds: Tuple[IndexKind, ...]) -> Optional[Tuple[int, tuple]]:
+    """Antipodal-kind plan.
+
+    A kind whose band pair swaps an earlier kind's has an index map that
+    is the exact negation of its partner's (the numerators negate, the
+    denominators are equal since float addition commutes; NDWI is
+    -GNDVI). Negation commutes with every sum and with the even-n
+    midpoint, so its median and centred sum of squares follow from the
+    partner's, and the select runs only on the canonical kinds.
+
+    Returns ``(nc, slots)``, with the first ``nc`` kinds canonical and
+    ``slots[k] = (canonical position, negate)``, or None when nothing is
+    derived or the canonical kinds are not a prefix of ``kinds`` (the
+    select reads the canonical index maps as one contiguous slice).
+    """
+    pair_slot = {}
+    slots = []
+    canon_positions = []
+    for k, kind in enumerate(kinds):
+        ia, ib = band_indices(kind)
+        if (ib, ia) in pair_slot:
+            slots.append((pair_slot[(ib, ia)], True))
+        elif (ia, ib) in pair_slot:
+            slots.append((pair_slot[(ia, ib)], False))
+        else:
+            pair_slot[(ia, ib)] = len(canon_positions)
+            slots.append((len(canon_positions), False))
+            canon_positions.append(k)
+    nc = len(canon_positions)
+    if nc == len(kinds) or canon_positions != list(range(nc)):
+        return None
+    return nc, tuple(slots)
+
+
+def analyze_image_kernel(
+    img: torch.Tensor,
+    kinds: Sequence = tuple(k.value for k in ALL_INDICES),
+    with_renders: bool = True,
+    with_hist: bool = True,
+) -> AnalyzeResult:
+    """Kernel-backed analysis of ``(H, W, 3)`` or ``(B, H, W, 3)`` uint8
+    frames on the tensor's device. Same result as
+    ``pipeline.fused.analyze_image``; ``with_hist=False`` leaves
+    ``IndexStats.histogram`` None."""
+    kinds = tuple(IndexKind.parse(k) for k in kinds)
+    batched = img.dim() == 4
+    frames = img if batched else img[None]
+    b, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
+    n = h * w
+    nk = len(kinds)
+
+    plan = _median_plan(kinds)
+    if plan is None:
+        nc, slots = nk, tuple((k, False) for k in range(nk))
+    else:
+        nc, slots = plan
+
+    hist = channel_histograms(frames)                           # (B, 3, 256)
+    lo, hi = wb_bounds_from_histogram(hist, n=n, cfg=WBConfig())  # (B, 3)
+    out = fused_analyze(frames, lo, hi, kinds, with_renders=with_renders,
+                        with_hist=with_hist,
+                        round0=[k < nc for k in range(nk)])
+    means = (out.sum / n).to(torch.float32)                     # (B, K)
+
+    # One select over every canonical (kind, frame) row: the index maps
+    # are kind-major, so the canonical kinds are a contiguous prefix.
+    rows = out.idx.reshape(nk * b, n)[: nc * b]
+    r0c = out.r0[:, :nc].transpose(0, 1).reshape(nc * b, 256)
+    means_c = means[:, :nc].transpose(0, 1).reshape(nc * b)
+    med_c, sumsq_c = masked_median_rows(rows, round0_hist=r0c, means=means_c)
+    med_c = med_c.reshape(nc, b)
+    var_c = (sumsq_c / n).to(torch.float32).reshape(nc, b)
+
+    def unbatch(t: torch.Tensor) -> torch.Tensor:
+        return t if batched else t[0]
+
+    indices: Dict[str, torch.Tensor] = {}
+    renders: Dict[str, torch.Tensor] = {}
+    stats: Dict[str, IndexStats] = {}
+    for k, kind in enumerate(kinds):
+        indices[kind.value] = unbatch(out.idx[k])
+        if with_renders:
+            renders[kind.value] = unbatch(out.rgb[k])
+        slot, negate = slots[k]
+        med = -med_c[slot] if negate else med_c[slot]
+        stats[kind.value] = IndexStats(
+            mean=unbatch(means[:, k]),
+            median=unbatch(med),
+            std=unbatch(torch.sqrt(var_c[slot])),
+            min=unbatch(out.min[:, k]),
+            max=unbatch(out.max[:, k]),
+            coverage_pct=unbatch(out.above[:, k].to(torch.float32) / n * 100.0),
+            histogram=unbatch(out.hist50[:, k]) if with_hist else None,
+            n=unbatch(torch.full((b,), n, dtype=torch.int32, device=img.device)),
+        )
+    return AnalyzeResult(wb=unbatch(out.wb), indices=indices, stats=stats,
+                         renders=renders)

@@ -50,3 +50,9 @@ def rgnir_image(rng):
 def rgnir_batch(rng):
     """(4, 64, 96, 3) uint8 batch."""
     return rng.integers(0, 256, size=(4, 64, 96, 3), dtype=np.uint8)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where there is none"
+    )
