@@ -9,15 +9,23 @@ Phases, each reported on its own line:
 2. build: every CUDA kernel of the path, built from ``rgnir_torch/csrc``;
 3. kernels: each kernel held against its plain PyTorch version on the
    card, at the main path's shapes (8 x 1024^2 frames, three kinds) and
-   at awkward ones (1080 x 1920 and 97 x 333), with its time, the plain
-   version's, a one-call PyTorch equivalent's where one exists, and its
-   bound;
-4. path: ``analyze_image_auto`` on 8 x 1024^2 x 3 frames with NDVI, GNDVI
-   and NDWI, renders and histogram on, then on the headline
-   configuration (NDVI only, no histogram); each against the plain
-   ``pipeline.fused.analyze_image`` on the card, with every kernel's
-   launch count read around the run, and a small frame against numpy;
-5. a ``kernels`` JSON line for the records.
+   at awkward ones (1080 x 1920, 1021 x 1000 and 97 x 333), with its
+   time, the plain version's, a one-call PyTorch equivalent's where one
+   exists, and its bound; byte_hist in both key modes, and the one-pass
+   select where a row is within its budget (1024^2);
+4. paths, each with every kernel's launch count set to 0 just before it
+   and read just after, and held to the path's own set of kernels:
+   ``analyze_image_auto`` on 8 x 1024^2 x 3 frames with NDVI, GNDVI and
+   NDWI, renders and histogram on, then on the headline configuration
+   (NDVI only, no histogram), each against the plain
+   ``pipeline.fused.analyze_image`` on the card; the same three-kind
+   batch through ``analyze_image_kernel(select_onepass=True)``, whose
+   medians must equal the default path's bit for bit; the f32 select
+   (``masked_median`` and ``radix_order_statistic``) against a sort; and
+   a small frame against numpy;
+5. the kernel self-test (``rgnir_torch.testing.selftest``), which must
+   pass;
+6. a ``kernels`` JSON line for the records.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises and exits non-zero before it; with no CUDA device, or without the
@@ -41,7 +49,8 @@ import numpy as np
 SEED = 0
 KINDS = ("NDVI", "GNDVI", "NDWI")
 MAIN_SHAPE = (8, 1024, 1024)
-AWKWARD_SHAPES = ((1, 1080, 1920), (1, 97, 333))
+AWKWARD_SHAPES = ((1, 1080, 1920), (1, 1021, 1000), (1, 97, 333))
+ONEPASS_MAX_N = 1024 * 1024  # the one-pass select's budget, in elements per row
 IDX_ATOL, MEAN_ATOL, VAR_ATOL = 1.2e-7, 1e-5, 1e-4
 REPS = 20
 
@@ -183,8 +192,32 @@ def kernel_checks(torch, timer, rates, shape, timed):
     check_equal(torch, f"q24_tail.lo {shape}", tail[0], tail_ref[0])
     check_equal(torch, f"q24_tail.nxt {shape}", tail[1], tail_ref[1])
     var_err = check_close(f"q24_tail.var {shape}", tail[2] / n, tail_ref[2] / n, VAR_ATOL)
-    log(f"kernels {shape}: hist, fused, byte_hist, q24_tail match their plain "
-        f"versions (idx err {idx_err}, mean err {mean_err}, var err {var_err})")
+    # byte_hist's f32 key mode, each round's prefix from a real pick
+    f32_prefix = torch.zeros(nc * b, dtype=torch.int64, device="cuda")
+    f32_rank = rank
+    f32_prefixes = {}
+    for shift in (24, 16, 8, 0):
+        f32_prefixes[shift] = f32_prefix
+        got = ks.byte_hist(rows, f32_prefix, shift, key_mode="f32")
+        check_equal(torch, f"byte_hist f32 shift {shift} {shape}", got,
+                    ks.byte_hist_plain(rows, f32_prefix, shift, "f32"))
+        fsel, fbelow, _ = cdf_pick(got, f32_rank)
+        f32_rank = f32_rank - fbelow
+        f32_prefix = f32_prefix | (fsel << shift)
+    checked = "hist, fused, byte_hist (q24 and f32), q24_tail"
+    onepass_err = None
+    if n <= ONEPASS_MAX_N:
+        sel0, rank1 = ks.round0_pick(r0c, rank)
+        one = ks.q24_onepass(rows, sel0, rank1, means)
+        one_ref = ks.q24_onepass_plain(rows, sel0, rank1, means)
+        for i, field in ((0, "lo"), (1, "nxt"), (3, "eq_minus_rank")):
+            check_equal(torch, f"q24_onepass.{field} {shape}", one[i], one_ref[i])
+        onepass_err = check_close(f"q24_onepass.var {shape}", one[2] / n, one_ref[2] / n,
+                                  VAR_ATOL)
+        checked += ", q24_onepass"
+    log(f"kernels {shape}: {checked} match their plain versions (idx err "
+        f"{idx_err}, mean err {mean_err}, var err {var_err}, one-pass var err "
+        f"{onepass_err})")
     if not timed:
         return records
 
@@ -228,9 +261,30 @@ def kernel_checks(torch, timer, rates, shape, timed):
         plain_ms=timer.kernel(lambda: ks.q24_tail_plain(rows, kp, means)),
         library_ms=None, bytes=sel_bytes, bound=bound(sel_bytes, 8 * nc * px),
         max_abs_err=var_err)
-    select_ms = timer.kernel(lambda: ks.masked_median_rows(rows, r0c, means))
     quantile_ms = timer.kernel(lambda: torch.quantile(rows, 0.5, dim=1, interpolation="midpoint"))
+    # byte_hist's f32 mode at its second round (shift 16), as the f32
+    # select runs it; about 5 operations per element (the key's select
+    # and or, the masked compare, the byte)
+    records["byte_hist_f32"] = dict(
+        ms=timer.kernel(lambda: ks.byte_hist(rows, f32_prefixes[16], 16, key_mode="f32")),
+        plain_ms=timer.kernel(lambda: ks.byte_hist_plain(rows, f32_prefixes[16], 16, "f32")),
+        library_ms=None, bytes=sel_bytes, bound=bound(sel_bytes, 5 * nc * px),
+        max_abs_err=0.0)
+    # q24_onepass: the selected values read once; about 18 operations per
+    # element over its three sweeps (the key twice more, the two masked
+    # compares of the rounds, the tail's two mins and centred square). Its
+    # yardstick is torch.quantile's median of the same rows.
+    records["q24_onepass"] = dict(
+        ms=timer.kernel(lambda: ks.q24_onepass(rows, sel0, rank1, means)),
+        plain_ms=timer.kernel(lambda: ks.q24_onepass_plain(rows, sel0, rank1, means)),
+        library_ms=quantile_ms, bytes=sel_bytes, bound=bound(sel_bytes, 18 * nc * px),
+        max_abs_err=onepass_err)
+    select_ms = timer.kernel(lambda: ks.masked_median_rows(rows, r0c, means))
+    onepass_select_ms = timer.kernel(
+        lambda: ks.masked_median_rows(rows, r0c, means, onepass=True))
     med, _ = ks.masked_median_rows(rows, r0c, means)
+    med1, _ = ks.masked_median_rows(rows, r0c, means, onepass=True)
+    check_equal(torch, "one-pass select median vs 3-pass", med1, med)
     check_close("select median vs torch.quantile", med,
                 torch.quantile(rows, 0.5, dim=1, interpolation="midpoint"), IDX_ATOL)
     for name, r in records.items():
@@ -238,8 +292,10 @@ def kernel_checks(torch, timer, rates, shape, timed):
             f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
             f"bound {r['bound'][0]:.4f} ms by {r['bound'][1]} ({r['bytes']} bytes)")
     log(f"select (round 0 from fused, 2 x byte_hist, q24_tail) {shape}: "
-        f"{select_ms:.4f} ms; torch.quantile(midpoint) on the same rows "
-        f"{quantile_ms:.4f} ms")
+        f"{select_ms:.4f} ms; one-pass select (round-0 pick, q24_onepass) "
+        f"{onepass_select_ms:.4f} ms; 3-pass kernels alone "
+        f"{2 * records['byte_hist']['ms'] + records['q24_tail']['ms']:.4f} ms; "
+        f"torch.quantile(midpoint) on the same rows {quantile_ms:.4f} ms")
     return records
 
 
@@ -290,18 +346,34 @@ def check_numpy(torch, analyze_image_auto):
     log("path 97x333: statistics, histogram and renders match numpy's")
 
 
+def count_launches(torch, wrappers, expected, what, fn):
+    """Run ``fn`` with every kernel's launch count set to 0 just before
+    and read just after; raise unless exactly the ``expected`` kernels
+    launched. Returns ``(fn's result, the counts)``."""
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    launched = {name for name, c in launches.items() if c > 0}
+    if launched != set(expected):
+        raise AssertionError(f"{what}: launched {sorted(launched)}, expected "
+                             f"{sorted(expected)} ({launches})")
+    return out, launches
+
+
+DEFAULT_PATH = ("hist", "fused", "byte_hist", "q24_tail")
+ONEPASS_PATH = ("hist", "fused", "q24_onepass")
+F32_SELECT_PATH = ("byte_hist",)
+
+
 def run_path(torch, timer, wrappers, img, kinds, with_hist):
     from rgnir_torch.pipeline.dispatch import analyze_image_auto
     from rgnir_torch.pipeline.fused import analyze_image
 
-    for fn in wrappers.values():
-        fn.launches = 0
-    res = analyze_image_auto(img, kinds=kinds, with_hist=with_hist, device="cuda")
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    missing = [name for name, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"path {kinds}: kernels never launched: {missing}")
+    res, launches = count_launches(
+        torch, wrappers, DEFAULT_PATH, f"path {kinds}",
+        lambda: analyze_image_auto(img, kinds=kinds, with_hist=with_hist, device="cuda"))
     ref = analyze_image(img, kinds=kinds, with_hist=with_hist, device="cuda")
     check_result(torch, f"path {kinds}", res, ref, kinds, with_hist)
     ms = timer.wall(lambda: analyze_image_auto(img, kinds=kinds, with_hist=with_hist,
@@ -312,6 +384,52 @@ def run_path(torch, timer, wrappers, img, kinds, with_hist):
     log(f"path {tuple(img.shape)} kinds={list(kinds)} hist={with_hist}: "
         f"matches the plain path; launches {launches}; {ms:.4f} ms per batch, "
         f"{mpix / ms * 1e3:.1f} MPix/s (plain path {plain_ms:.4f} ms)")
+    return res, ref, launches
+
+
+def run_onepass_path(torch, timer, wrappers, img, kinds, default, ref):
+    """The same batch through the one-pass select: the same medians, bit
+    for bit, as the default path's, and the plain path's statistics."""
+    from rgnir_torch.kernels.pipeline import analyze_image_kernel
+    from rgnir_torch.pipeline.dispatch import analyze_image_auto
+
+    res, launches = count_launches(
+        torch, wrappers, ONEPASS_PATH, f"one-pass path {kinds}",
+        lambda: analyze_image_kernel(img, kinds=kinds, select_onepass=True))
+    for k in kinds:
+        check_equal(torch, f"one-pass path {k}.median vs the default path's",
+                    res.stats[k].median, default.stats[k].median)
+    check_result(torch, f"one-pass path {kinds}", res, ref, kinds, True)
+
+    def three():
+        return analyze_image_auto(img, kinds=kinds, device="cuda")
+
+    def one():
+        return analyze_image_kernel(img, kinds=kinds, select_onepass=True)
+
+    # in turns (3-pass, one-pass, one-pass, 3-pass), host noise being large
+    t3a, t1a, t1b, t3b = (timer.wall(f) for f in (three, one, one, three))
+    log(f"one-pass path {tuple(img.shape)} kinds={list(kinds)}: medians equal the "
+        f"default path's; launches {launches}; ms per batch, in turns: 3-pass "
+        f"{t3a:.4f}, one-pass {t1a:.4f}, one-pass {t1b:.4f}, 3-pass {t3b:.4f}")
+    return launches
+
+
+def run_f32_select(torch, wrappers, rows):
+    """The f32 key's selects, 4 byte_hist rounds each, against a sort."""
+    from rgnir_torch.kernels.select import masked_median, radix_order_statistic
+
+    n = rows.shape[1]
+    med, launches = count_launches(torch, wrappers, F32_SELECT_PATH, "f32 select",
+                                   lambda: masked_median(rows, n))
+    srt = rows.sort(dim=1).values
+    k = (n - 1) // 2
+    want = srt[:, k] if n % 2 else (srt[:, k] + srt[:, k + 1]) * 0.5
+    check_equal(torch, "f32 masked_median vs sort", med, want)
+    check_equal(torch, "radix_order_statistic vs sort",
+                radix_order_statistic(rows, 1234), srt[:, 1234])
+    log(f"f32 select {tuple(rows.shape)}: masked_median and radix_order_statistic "
+        f"equal a sort; launches {launches}")
     return launches
 
 
@@ -320,6 +438,8 @@ KERNEL_SOURCES = {
     "fused": ("rgnir_torch/csrc/fused.cu", "rgnir_tpu/kernels/fused.py:78"),
     "byte_hist": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:55"),
     "q24_tail": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:220"),
+    "byte_hist_f32": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:55"),
+    "q24_onepass": ("rgnir_torch/csrc/onepass.cu", "rgnir_tpu/kernels/select.py:333"),
 }
 
 
@@ -368,17 +488,27 @@ def main() -> int:
     frames = torch.as_tensor(
         np.random.default_rng(SEED).integers(0, 256, MAIN_SHAPE + (3,), dtype=np.uint8),
         device="cuda")
-    launches = run_path(torch, timer, WRAPPERS, frames, KINDS, with_hist=True)
+    default, ref, launches = run_path(torch, timer, WRAPPERS, frames, KINDS, with_hist=True)
     run_path(torch, timer, WRAPPERS, frames, ("NDVI",), with_hist=False)
+    onepass_launches = run_onepass_path(torch, timer, WRAPPERS, frames, KINDS, default, ref)
+    canonical = torch.stack([default.indices[k] for k in KINDS[:2]]).reshape(2 * MAIN_SHAPE[0], -1)
+    f32_launches = run_f32_select(torch, WRAPPERS, canonical)
     check_numpy(torch, analyze_image_auto)
+    path_launches = dict(launches, q24_onepass=onepass_launches["q24_onepass"],
+                         byte_hist_f32=f32_launches["byte_hist"])
 
-    # 5. records
+    # 5. the kernel self-test
+    from rgnir_torch.testing import selftest
+
+    require(selftest.main() == 0, "the kernel self-test")
+
+    # 6. records
     kernels = []
     for name, r in records.items():
         source, replaces = KERNEL_SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "launches": path_launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })

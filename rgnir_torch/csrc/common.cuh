@@ -1,5 +1,6 @@
 // Shared helpers of the analysis kernels: the C export macro, the error
-// string for the ctypes wrappers, float atomics and warp reductions.
+// string for the ctypes wrappers, float atomics, warp reductions, the
+// q24 key, and the select kernels' row map and tail fold.
 // Each kernel source includes this once and builds into its own shared
 // library (rgnir_torch/kernels/_build.py), loaded with ctypes.
 #pragma once
@@ -64,4 +65,43 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ int q24_key(float v) {
   return min(static_cast<int>(__fmul_rn(__fadd_rn(v, 1.0f), 8388608.0f)),
              16777215);
+}
+
+// The select kernels' row map (the TPU kernels' take_prefix index map):
+// the input rows are groups of `group` consecutive rows of which the
+// first `take` are selected; selected row bi is input row
+// (bi / take) * group + bi % take.
+__device__ __forceinline__ long long input_row(long long bi, int group, int take) {
+  return (bi / take) * group + bi % take;
+}
+
+// Folds each thread's tail partials of one row (least value of the
+// winning key, least value above it, sum of squares) into the row's
+// outputs: warp shuffles, then one atomic each from thread 0. Every
+// thread of the block (Warps warps) must call it.
+template <int Warps>
+__device__ __forceinline__ void block_fold_tail(float lo, float nx, float s,
+                                                float* lohi, double* ss) {
+  __shared__ float w_lo[Warps], w_nx[Warps], w_ss[Warps];
+  lo = warp_min(lo);
+  nx = warp_min(nx);
+  s = warp_sum(s);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    w_lo[warp] = lo;
+    w_nx[warp] = nx;
+    w_ss[warp] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double total = 0.0;
+    for (int wi = 0; wi < Warps; ++wi) {
+      lo = fminf(lo, w_lo[wi]);
+      nx = fminf(nx, w_nx[wi]);
+      total += w_ss[wi];
+    }
+    atomic_min_f32(lohi, lo);
+    atomic_min_f32(lohi + 1, nx);
+    atomicAdd(ss, total);
+  }
 }

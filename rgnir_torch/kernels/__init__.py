@@ -8,7 +8,14 @@ PyTorch version for a CPU tensor, and counts its launches in its
 from rgnir_torch.kernels.fused import fused_analyze
 from rgnir_torch.kernels.hist import channel_histograms
 from rgnir_torch.kernels.pipeline import analyze_image_kernel
-from rgnir_torch.kernels.select import byte_hist, masked_median_rows, q24_tail
+from rgnir_torch.kernels.select import (
+    byte_hist,
+    masked_median,
+    masked_median_rows,
+    q24_onepass,
+    q24_tail,
+    radix_order_statistic,
+)
 
 # Every kernel wrapper, by the name its kernel carries in the records.
 WRAPPERS = {
@@ -16,6 +23,7 @@ WRAPPERS = {
     "fused": fused_analyze,
     "byte_hist": byte_hist,
     "q24_tail": q24_tail,
+    "q24_onepass": q24_onepass,
 }
 
 __all__ = [
@@ -24,6 +32,9 @@ __all__ = [
     "byte_hist",
     "channel_histograms",
     "fused_analyze",
+    "masked_median",
     "masked_median_rows",
+    "q24_onepass",
     "q24_tail",
+    "radix_order_statistic",
 ]

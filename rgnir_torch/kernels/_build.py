@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rgnir_torch_kernels"
-SOURCES = ("hist", "fused", "select")
+SOURCES = ("hist", "fused", "select", "onepass")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -3,9 +3,10 @@
 histogram kernel -> white-balance bounds (O(256) tensor ops) -> fused
 kernel (WB, index maps, stats, 50-bin histogram, renders, round-0
 histogram) -> q24 radix select (two byte-histogram rounds and one tail
-pass that also gives the centred sum of squares). On CUDA tensors each
-step launches its kernel; on CPU tensors each takes its plain version,
-so the same composition runs in the CPU tests.
+pass that also gives the centred sum of squares; or, with
+``select_onepass=True``, one launch of the one-pass select). On CUDA
+tensors each step launches its kernel; on CPU tensors each takes its
+plain version, so the same composition runs in the CPU tests.
 Counterpart: ``rgnir_tpu/kernels/pipeline.py``.
 """
 
@@ -64,11 +65,14 @@ def analyze_image_kernel(
     kinds: Sequence = tuple(k.value for k in ALL_INDICES),
     with_renders: bool = True,
     with_hist: bool = True,
+    select_onepass: Optional[bool] = None,
 ) -> AnalyzeResult:
     """Kernel-backed analysis of ``(H, W, 3)`` or ``(B, H, W, 3)`` uint8
     frames on the tensor's device. Same result as
     ``pipeline.fused.analyze_image``; ``with_hist=False`` leaves
-    ``IndexStats.histogram`` None."""
+    ``IndexStats.histogram`` None. ``select_onepass=True`` takes the
+    medians by the one-pass select kernel (frames of at most 1024^2
+    pixels) instead of the 3-pass select; the results are the same."""
     kinds = tuple(IndexKind.parse(k) for k in kinds)
     batched = img.dim() == 4
     frames = img if batched else img[None]
@@ -94,7 +98,8 @@ def analyze_image_kernel(
     rows = out.idx.reshape(nk * b, n)[: nc * b]
     r0c = out.r0[:, :nc].transpose(0, 1).reshape(nc * b, 256)
     means_c = means[:, :nc].transpose(0, 1).reshape(nc * b)
-    med_c, sumsq_c = masked_median_rows(rows, round0_hist=r0c, means=means_c)
+    med_c, sumsq_c = masked_median_rows(rows, round0_hist=r0c, means=means_c,
+                                        onepass=select_onepass)
     med_c = med_c.reshape(nc, b)
     var_c = (sumsq_c / n).to(torch.float32).reshape(nc, b)
 

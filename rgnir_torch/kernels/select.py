@@ -1,66 +1,140 @@
-"""The exact median of index maps by q24 radix select: the CUDA kernels,
-their plain versions, and the select that composes them.
+"""Exact medians and order statistics by radix select: the CUDA kernels,
+their plain versions, and the selects that compose them.
 
-Kernels: ``rgnir_torch/csrc/select.cu``, in place of the TPU kernels
-``rgnir_tpu/kernels/select.py:_byte_hist_kernel`` (q24 key mode) and
-``rgnir_tpu/kernels/select.py:_q24_tail_kernel``. The select
-(:func:`masked_median_rows`) takes round 0 from the fused pass's
-histogram, runs ``byte_hist`` for the rounds at shift 8 and 0, and one
-``q24_tail`` pass. Its cdf picks are O(256) tensor ops on the device, so
-a select makes no host round trip.
+Kernels, in place of the TPU kernels of ``rgnir_tpu/kernels/select.py``:
+
+- ``byte_hist`` (``rgnir_torch/csrc/select.cu``): one radix round, in the
+  q24 and f32 key modes, for ``_byte_hist_kernel``;
+- ``q24_tail`` (``select.cu``): the q24 select's tail pass, for
+  ``_q24_tail_kernel``;
+- ``q24_onepass`` (``rgnir_torch/csrc/onepass.cu``): rounds 1 and 2,
+  their picks and the tail in one launch that reads the values once, for
+  ``_q24_onepass_kernel``.
+
+``take_prefix=(group, take)`` views the B input rows as groups of
+``group`` consecutive rows and selects the first ``take`` of each; the
+kernels never read the skipped rows. The cdf picks between rounds are
+O(256) tensor ops on the device, so a select makes no host round trip.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import math
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from rgnir_torch.kernels._build import launch
-from rgnir_torch.ops.select import cdf_pick, q24_keys
+from rgnir_torch.ops.select import (
+    SHIFTS,
+    cdf_pick,
+    f32_from_ordered_u32,
+    ordered_u32_from_f32,
+    q24_keys,
+)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
+_INT = ctypes.c_int
+
+_KEY_MODE = {"q24": 0, "f32": 1}
+
+# The one-pass select's largest row, in bytes of 1024-element rows: the
+# JAX package's VMEM cache budget. The two packages accept and refuse the
+# same calls; the card itself would take larger rows.
+Q24_ONEPASS_MAX_CACHE_BYTES = 4 << 20
+# The one-pass kernel takes the selected rows in groups of at most this
+# many bytes, so that a group read once from device memory stays in the
+# card's 50 MB L2 for its second and third reads. Chosen on an H100 SXM
+# by tools/profile_torch_path.py --onepass-group-mb (PERF.md): larger
+# groups no longer stay in L2, smaller ones pay more grid barriers.
+ONEPASS_GROUP_BYTES = 32 << 20
+_ONEPASS_SCRATCH = 2060  # bytes per selected row: rank, 2 x 256 counts, key
 
 
-def _check_rows(rows: torch.Tensor, *per_row: torch.Tensor) -> None:
+def _row_map(b: int, take_prefix: Optional[Tuple[int, int]]) -> Tuple[int, int, int]:
+    """``(selected rows, group, take)`` of ``b`` input rows."""
+    if take_prefix is None:
+        return b, 1, 1
+    group, take = take_prefix
+    if group < 1 or b % group != 0 or not 0 < take <= group:
+        raise ValueError(f"take_prefix {take_prefix} does not fit {b} rows")
+    return b // group * take, group, take
+
+
+def _selected(rows: torch.Tensor, take_prefix: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """The selected rows of ``(B, n)`` rows, as a view."""
+    b_sel, group, take = _row_map(rows.shape[0], take_prefix)
+    if take == group:
+        return rows
+    return rows.reshape(-1, group, rows.shape[1])[:, :take].reshape(b_sel, rows.shape[1])
+
+
+def _check_rows(rows: torch.Tensor, b_sel: int, *per_row: torch.Tensor) -> None:
     if rows.device.type != "cuda" or rows.dtype != torch.float32 or rows.dim() != 2:
         raise ValueError(
             f"expected (rows, n) float32 on CUDA, got {tuple(rows.shape)} "
             f"{rows.dtype} on {rows.device}"
         )
     for t in per_row:
-        if t.shape != (rows.shape[0],) or t.device != rows.device:
-            raise ValueError(f"expected ({rows.shape[0]},) on {rows.device}, "
+        if t.shape != (b_sel,) or t.device != rows.device:
+            raise ValueError(f"expected ({b_sel},) on {rows.device}, "
                              f"got {tuple(t.shape)} on {t.device}")
 
 
-def byte_hist_plain(rows: torch.Tensor, prefix: torch.Tensor, shift: int) -> torch.Tensor:
-    """256-bin counts of q24 key byte ``(key >> shift) & 255`` over the
-    elements of each row whose higher key bits match the row's prefix."""
-    keys = q24_keys(rows)
-    high = shift + 8
-    active = (keys >> high) == (prefix.to(torch.int64) >> high)[:, None]
-    out = torch.zeros(rows.shape[0], 256, dtype=torch.int64, device=rows.device)
-    out.scatter_add_(1, (keys >> shift) & 255, active.to(torch.int64))
+def _radix_keys(rows: torch.Tensor, key_mode: str) -> torch.Tensor:
+    return ordered_u32_from_f32(rows) if key_mode == "f32" else q24_keys(rows)
+
+
+def _check_round(shift: int, key_mode: str) -> None:
+    if key_mode not in SHIFTS or shift not in SHIFTS[key_mode]:
+        raise ValueError(f"no radix round at shift {shift} in key mode {key_mode!r}")
+
+
+# --- byte_hist -----------------------------------------------------------------
+
+def byte_hist_plain(
+    rows: torch.Tensor, prefix: torch.Tensor, shift: int, key_mode: str = "q24",
+    take_prefix: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """256-bin counts of key byte ``(key >> shift) & 255`` over the
+    elements of each selected row whose key bits above that byte match
+    the row's prefix; the top round counts every element."""
+    _check_round(shift, key_mode)
+    keys = _radix_keys(_selected(rows, take_prefix), key_mode)
+    if shift == SHIFTS[key_mode][0]:
+        active = torch.ones_like(keys)
+    else:
+        high = shift + 8
+        want = (prefix.to(torch.int64) & 0xFFFFFFFF) >> high
+        active = ((keys >> high) == want[:, None]).to(torch.int64)
+    out = torch.zeros(keys.shape[0], 256, dtype=torch.int64, device=rows.device)
+    out.scatter_add_(1, (keys >> shift) & 255, active)
     return out.to(torch.int32)
 
 
-def byte_hist(rows: torch.Tensor, prefix: torch.Tensor, shift: int) -> torch.Tensor:
-    """One radix round over ``(R, n)`` float32 rows with ``(R,)`` int32
-    q24 prefixes: ``(R, 256)`` int32. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel."""
+def byte_hist(
+    rows: torch.Tensor, prefix: torch.Tensor, shift: int, key_mode: str = "q24",
+    take_prefix: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """One radix round over ``(B, n)`` float32 rows: ``(Bsel, 256)``
+    int32 counts. ``prefix`` holds each selected row's key so far, as
+    uint32 values in an int64 tensor or as their bit patterns in an
+    int32 one. ``key_mode`` is ``"q24"`` or ``"f32"``. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel."""
     if rows.device.type == "cpu":
-        return byte_hist_plain(rows, prefix, shift)
-    _check_rows(rows, prefix)
+        return byte_hist_plain(rows, prefix, shift, key_mode, take_prefix)
+    _check_round(shift, key_mode)
+    b_sel, group, take = _row_map(rows.shape[0], take_prefix)
+    _check_rows(rows, b_sel, prefix)
     rows = rows.contiguous()
-    prefix = prefix.to(torch.int32).contiguous()
-    out = torch.zeros(rows.shape[0], 256, dtype=torch.int32, device=rows.device)
+    prefix = prefix.to(torch.int32).contiguous()  # int64 -> int32 keeps the low 32 bits
+    out = torch.zeros(b_sel, 256, dtype=torch.int32, device=rows.device)
     launch("select", "rgnir_byte_hist",
-           (_P, _I64, _I64, _P, ctypes.c_int, _P),
-           (rows.data_ptr(), rows.shape[0], rows.shape[1], prefix.data_ptr(),
-            shift, out.data_ptr()), rows.device)
+           (_P, _I64, _I64, _P, _INT, _INT, _INT, _INT, _P),
+           (rows.data_ptr(), b_sel, rows.shape[1], prefix.data_ptr(), shift,
+            _KEY_MODE[key_mode], group, take, out.data_ptr()), rows.device)
     byte_hist.launches += 1
     return out
 
@@ -68,38 +142,44 @@ def byte_hist(rows: torch.Tensor, prefix: torch.Tensor, shift: int) -> torch.Ten
 byte_hist.launches = 0
 
 
+# --- q24_tail ------------------------------------------------------------------
+
 def q24_tail_plain(
-    rows: torch.Tensor, kp: torch.Tensor, means: torch.Tensor
+    rows: torch.Tensor, kp: torch.Tensor, means: torch.Tensor,
+    take_prefix: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per row: the least value whose q24 key is ``kp``, the least value
-    whose key exceeds it, and the sum of squares about ``means``."""
-    keys = q24_keys(rows)
+    """Per selected row: the least value whose q24 key is ``kp``, the
+    least value whose key exceeds it, and the sum of squares about
+    ``means``."""
+    x = _selected(rows, take_prefix)
+    keys = q24_keys(x)
     kp = kp.to(torch.int64)[:, None]
-    inf = torch.full_like(rows, float("inf"))
-    lo = torch.where(keys == kp, rows, inf).amin(dim=-1)
-    nxt = torch.where(keys > kp, rows, inf).amin(dim=-1)
-    c = rows - means.to(torch.float32)[:, None]
+    inf = torch.full_like(x, float("inf"))
+    lo = torch.where(keys == kp, x, inf).amin(dim=-1)
+    nxt = torch.where(keys > kp, x, inf).amin(dim=-1)
+    c = x - means.to(torch.float32)[:, None]
     return lo, nxt, (c * c).sum(dim=-1, dtype=torch.float64)
 
 
 def q24_tail(
-    rows: torch.Tensor, kp: torch.Tensor, means: torch.Tensor
+    rows: torch.Tensor, kp: torch.Tensor, means: torch.Tensor,
+    take_prefix: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The select's tail pass: ``(lo, nxt)`` float32 and the centred sum
-    of squares float64, each ``(R,)``. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel."""
+    """The q24 select's tail pass: ``(lo, nxt)`` float32 and the centred
+    sum of squares float64, each ``(Bsel,)``. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel."""
     if rows.device.type == "cpu":
-        return q24_tail_plain(rows, kp, means)
-    _check_rows(rows, kp, means)
+        return q24_tail_plain(rows, kp, means, take_prefix)
+    b_sel, group, take = _row_map(rows.shape[0], take_prefix)
+    _check_rows(rows, b_sel, kp, means)
     rows = rows.contiguous()
     kp = kp.to(torch.int32).contiguous()
     means = means.to(torch.float32).contiguous()
-    r = rows.shape[0]
-    lohi = torch.full((r, 2), float("inf"), dtype=torch.float32, device=rows.device)
-    ss = torch.zeros(r, dtype=torch.float64, device=rows.device)
-    launch("select", "rgnir_q24_tail", (_P, _I64, _I64, _P, _P, _P, _P),
-           (rows.data_ptr(), r, rows.shape[1], kp.data_ptr(), means.data_ptr(),
-            lohi.data_ptr(), ss.data_ptr()), rows.device)
+    lohi = torch.full((b_sel, 2), float("inf"), dtype=torch.float32, device=rows.device)
+    ss = torch.zeros(b_sel, dtype=torch.float64, device=rows.device)
+    launch("select", "rgnir_q24_tail", (_P, _I64, _I64, _P, _P, _INT, _INT, _P, _P),
+           (rows.data_ptr(), b_sel, rows.shape[1], kp.data_ptr(), means.data_ptr(),
+            group, take, lohi.data_ptr(), ss.data_ptr()), rows.device)
     q24_tail.launches += 1
     return lohi[:, 0], lohi[:, 1], ss
 
@@ -107,39 +187,233 @@ def q24_tail(
 q24_tail.launches = 0
 
 
+# --- q24_onepass ---------------------------------------------------------------
+
+def q24_onepass_plain(
+    rows: torch.Tensor, sel0: torch.Tensor, rank1: torch.Tensor, means: torch.Tensor,
+    take_prefix: Optional[Tuple[int, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Rounds 1 and 2 of the q24 select from the round-0 byte ``sel0``
+    and the rank ``rank1`` left in it, then the tail: ``(lo, nxt,
+    centred sum of squares, eq_minus_rank)``."""
+    x = _selected(rows, take_prefix)
+    prefix = sel0.to(torch.int64) << 16
+    rank = rank1.to(torch.int64)
+    in_bin = None
+    for shift in (8, 0):
+        sel, below, in_bin = cdf_pick(byte_hist_plain(x, prefix, shift), rank)
+        rank = rank - below
+        prefix = prefix | (sel << shift)
+    lo, nxt, ss = q24_tail_plain(x, prefix, means)
+    return lo, nxt, ss, in_bin - rank
+
+
+def q24_onepass(
+    rows: torch.Tensor, sel0: torch.Tensor, rank1: torch.Tensor, means: torch.Tensor,
+    take_prefix: Optional[Tuple[int, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The one-pass q24 select: ``(lo, nxt)`` float32, the centred sum
+    of squares float64 and eq_minus_rank int64, each ``(Bsel,)``, as
+    :func:`q24_onepass_plain` gives them. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (one cooperative launch,
+    which raises if the card refuses it)."""
+    if rows.device.type == "cpu":
+        return q24_onepass_plain(rows, sel0, rank1, means, take_prefix)
+    b_sel, group, take = _row_map(rows.shape[0], take_prefix)
+    _check_rows(rows, b_sel, sel0, rank1, means)
+    rows = rows.contiguous()
+    n = rows.shape[1]
+    sel0 = sel0.to(torch.int32).contiguous()
+    rank1 = rank1.to(torch.int64).contiguous()
+    means = means.to(torch.float32).contiguous()
+    dev = rows.device
+    scratch = torch.empty(b_sel * _ONEPASS_SCRATCH, dtype=torch.uint8, device=dev)
+    lohi = torch.empty(b_sel, 2, dtype=torch.float32, device=dev)
+    ss = torch.empty(b_sel, dtype=torch.float64, device=dev)
+    eqmr = torch.empty(b_sel, dtype=torch.int64, device=dev)
+    group_rows = max(1, ONEPASS_GROUP_BYTES // max(4 * n, 1))
+    launch("onepass", "rgnir_q24_onepass",
+           (_P, _I64, _I64, _INT, _INT, _I64, _P, _P, _P, _P, _P, _P, _P),
+           (rows.data_ptr(), b_sel, n, group, take, group_rows, sel0.data_ptr(),
+            rank1.data_ptr(), means.data_ptr(), scratch.data_ptr(), lohi.data_ptr(),
+            ss.data_ptr(), eqmr.data_ptr()), dev)
+    q24_onepass.launches += 1
+    return lohi[:, 0], lohi[:, 1], ss, eqmr
+
+
+q24_onepass.launches = 0
+
+
+# --- the selects -----------------------------------------------------------------
+
+def round0_pick(r0_hist: torch.Tensor, rank: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cdf pick on a ``(Bsel, 256)`` round-0 histogram: the winning
+    byte and the rank left inside its bin. Counterpart:
+    ``rgnir_tpu/kernels/select.py:_round0_pick``."""
+    sel, below, _ = cdf_pick(r0_hist, rank)
+    return sel, rank - below
+
+
+def _select(
+    rows: torch.Tensor, rank: torch.Tensor, key_mode: str,
+    round0_hist: Optional[torch.Tensor] = None,
+    take_prefix: Optional[Tuple[int, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The radix rounds: ``(selected key, eq_minus_rank)``, int64, for
+    each selected row; round 0 from ``round0_hist`` when given.
+    Counterpart: ``rgnir_tpu/kernels/select.py:_select_batched``."""
+    b_sel, _, _ = _row_map(rows.shape[0], take_prefix)
+    prefix = torch.zeros(b_sel, dtype=torch.int64, device=rows.device)
+    rank = rank.to(torch.int64)
+    eq_minus_rank = None
+    shifts = SHIFTS[key_mode]
+    for shift in shifts:
+        if shift == shifts[0] and round0_hist is not None:
+            hist = round0_hist
+        else:
+            hist = byte_hist(rows, prefix, shift, key_mode, take_prefix)
+        sel, below, in_bin = cdf_pick(hist, rank)
+        rank = rank - below
+        prefix = prefix | (sel << shift)
+        eq_minus_rank = in_bin - rank
+    return prefix, eq_minus_rank
+
+
+def _check_onepass(round0_hist: Optional[torch.Tensor], n: int) -> None:
+    if round0_hist is None:
+        raise ValueError("onepass=True requires round0_hist")
+    cache_bytes = -(-n // 1024) * 1024 * 4
+    if cache_bytes > Q24_ONEPASS_MAX_CACHE_BYTES:
+        raise ValueError(f"onepass=True: {cache_bytes} B exceeds the cache "
+                         f"budget {Q24_ONEPASS_MAX_CACHE_BYTES}")
+
+
+def _q24_median(
+    rows: torch.Tensor, rank: torch.Tensor, round0_hist: Optional[torch.Tensor],
+    means: torch.Tensor, onepass: Optional[bool],
+    take_prefix: Optional[Tuple[int, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The q24 median (numpy even-n semantics) and centred sum of squares
+    of each selected row, by the 3-pass select or, with ``onepass``, the
+    one-pass kernel."""
+    n = rows.shape[1]
+    if onepass:
+        _check_onepass(round0_hist, n)
+        sel0, rank1 = round0_pick(round0_hist, rank)
+        lo, nxt, sumsq, eq_minus_rank = q24_onepass(rows, sel0, rank1, means, take_prefix)
+    else:
+        kp, eq_minus_rank = _select(rows, rank, "q24", round0_hist, take_prefix)
+        lo, nxt, sumsq = q24_tail(rows, kp, means, take_prefix)
+    if n % 2 == 1:
+        return lo, sumsq
+    hi = torch.where(eq_minus_rank >= 2, lo, nxt)
+    return (lo + hi) * 0.5, sumsq
+
+
 def masked_median_rows(
     rows: torch.Tensor,
     round0_hist: Optional[torch.Tensor] = None,
     means: Optional[torch.Tensor] = None,
+    onepass: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact median (numpy even-n semantics) and centred sum of squares
     of each row of ``(R, n)`` float32 index maps.
 
     ``round0_hist``: ``(R, 256)`` counts of the q24 top byte (the fused
     pass's round-0 output), which saves round 0's pass; ``means``:
-    ``(R,)`` centres for the sum of squares (zeros by default). The q24
-    key is exact only for index maps of uint8 bands (distinct values
-    more than 2^-19 apart, all in [-1, 1]). Counterpart:
-    ``rgnir_tpu/kernels/select.py:masked_median_pallas_rows``.
+    ``(R,)`` centres for the sum of squares (zeros by default);
+    ``onepass=True`` runs the one-pass kernel (it needs ``round0_hist``
+    and rows within ``Q24_ONEPASS_MAX_CACHE_BYTES``), else the 3-pass
+    select. The q24 key is exact only for index maps of uint8 bands
+    (distinct values more than 2^-19 apart, all in [-1, 1]).
+    Counterpart: ``rgnir_tpu/kernels/select.py:masked_median_pallas_rows``.
     """
     r, n = rows.shape
     dev = rows.device
     rank = torch.full((r,), (n - 1) // 2, dtype=torch.int64, device=dev)
-    prefix = torch.zeros(r, dtype=torch.int64, device=dev)
     if means is None:
         means = torch.zeros(r, dtype=torch.float32, device=dev)
-    eq_minus_rank = None
-    for shift in (16, 8, 0):
-        if shift == 16 and round0_hist is not None:
-            hist = round0_hist
-        else:
-            hist = byte_hist(rows, prefix.to(torch.int32), shift)
-        sel, below, in_bin = cdf_pick(hist, rank)
-        rank = rank - below
-        prefix = prefix | (sel << shift)
-        eq_minus_rank = in_bin - rank
-    lo, nxt, sumsq = q24_tail(rows, prefix.to(torch.int32), means)
+    return _q24_median(rows, rank, round0_hist, means, onepass)
+
+
+def _flatten(vals: torch.Tensor, reduce_ndim: int) -> Tuple[tuple, int, torch.Tensor]:
+    """``(batch shape, n, (B, n) float32 rows)`` of ``vals`` reduced over
+    its last ``reduce_ndim`` axes."""
+    batch = tuple(vals.shape[: vals.dim() - reduce_ndim])
+    n = math.prod(vals.shape[vals.dim() - reduce_ndim:])
+    return batch, n, vals.reshape(-1, n).to(torch.float32)
+
+
+def masked_median(
+    vals: torch.Tensor,
+    n_valid: int,
+    reduce_ndim: int = 1,
+    round0_hist: Optional[torch.Tensor] = None,
+    take_prefix: Optional[Tuple[int, int]] = None,
+    quantized: bool = False,
+    means: Optional[torch.Tensor] = None,
+    onepass: Optional[bool] = None,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Exact median (numpy even-n semantics) over the last ``reduce_ndim``
+    axes of ``vals``; leading axes batch. Every element is valid:
+    ``n_valid`` must equal their count.
+
+    ``round0_hist``: the top key byte's counts per selected row, which
+    saves round 0's pass. ``take_prefix=(group, take)``: the last batch
+    axis has ``group`` entries and only the first ``take`` are reduced
+    (the rest are never read); the result's last axis is then ``take``.
+    ``quantized``: select over the q24 key (3 rounds; exact only for
+    index maps of uint8 bands) instead of the f32 bit key (4 rounds,
+    exact for any non-NaN data). ``means`` (quantized only): centres of
+    the sum of squares, shaped like the result, which the tail pass then
+    also returns: ``(median, centred sum of squares)``. ``onepass=True``
+    (quantized only) runs the one-pass kernel, as in
+    :func:`masked_median_rows`. Counterpart:
+    ``rgnir_tpu/kernels/select.py:masked_median_pallas``.
+    """
+    batch, n, rows = _flatten(vals, reduce_ndim)
+    if n != n_valid:
+        raise ValueError(f"n_valid {n_valid} != {n} elements: every element must be valid")
+    if take_prefix is not None:
+        group, take = take_prefix
+        if not batch or batch[-1] != group:
+            raise ValueError(f"take_prefix group {group} must equal the last "
+                             f"batch dim, got batch {batch}")
+        out_batch = batch[:-1] + (take,)
+    else:
+        out_batch = batch
+    b_sel, _, _ = _row_map(rows.shape[0], take_prefix)
+    dev = rows.device
+    rank = torch.full((b_sel,), (n - 1) // 2, dtype=torch.int64, device=dev)
+    r0 = None if round0_hist is None else round0_hist.reshape(-1, 256)
+    if means is not None and not quantized:
+        raise ValueError("means= requires quantized=True")
+    if quantized:
+        mean_b = (torch.zeros(b_sel, dtype=torch.float32, device=dev) if means is None
+                  else means.reshape(-1).to(torch.float32))
+        med, sumsq = _q24_median(rows, rank, r0, mean_b, onepass, take_prefix)
+        if means is None:
+            return med.reshape(out_batch)
+        return med.reshape(out_batch), sumsq.reshape(out_batch)
+    kp, eq_minus_rank = _select(rows, rank, "f32", r0, take_prefix)
+    lo = f32_from_ordered_u32(kp)
     if n % 2 == 1:
-        return lo, sumsq
+        return lo.reshape(out_batch)
+    # the successor in float order, which is key order on non-NaN data
+    x = _selected(rows, take_prefix)
+    nxt = torch.where(x > lo[:, None], x, float("inf")).amin(dim=-1)
     hi = torch.where(eq_minus_rank >= 2, lo, nxt)
-    return (lo + hi) * 0.5, sumsq
+    return ((lo + hi) * 0.5).reshape(out_batch)
+
+
+def radix_order_statistic(
+    vals: torch.Tensor, rank: Union[int, Sequence[int], torch.Tensor], reduce_ndim: int = 1,
+) -> torch.Tensor:
+    """The exact ``rank``-th smallest float32 over the last
+    ``reduce_ndim`` axes (``rank`` broadcasts over the leading axes),
+    by four f32 radix rounds. Counterpart:
+    ``rgnir_tpu/kernels/select.py:radix_order_statistic_pallas``."""
+    batch, _, rows = _flatten(vals, reduce_ndim)
+    rank_b = torch.as_tensor(rank, dtype=torch.int64, device=rows.device)
+    kp, _ = _select(rows, rank_b.broadcast_to(batch).reshape(-1), "f32")
+    return f32_from_ordered_u32(kp).reshape(batch)

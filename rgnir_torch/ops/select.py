@@ -28,7 +28,8 @@ import torch
 Q24_SCALE = 8388608.0   # 2^23
 Q24_MAX = (1 << 24) - 1
 
-_SHIFTS = {"f32": (24, 16, 8, 0), "q24": (16, 8, 0)}
+# Radix rounds of each key, top byte first.
+SHIFTS = {"f32": (24, 16, 8, 0), "q24": (16, 8, 0)}
 
 
 def ordered_u32_from_f32(x: torch.Tensor) -> torch.Tensor:
@@ -84,7 +85,7 @@ def radix_select(
     if active is None:
         active = torch.ones_like(keys, dtype=torch.bool)
     eq_minus_rank = None
-    for shift in _SHIFTS[key]:
+    for shift in SHIFTS[key]:
         byte = (keys >> shift) & 255
         hist = torch.zeros(rows, 256, dtype=torch.int64, device=keys.device)
         hist.scatter_add_(1, byte, active.to(torch.int64))

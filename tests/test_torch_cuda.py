@@ -20,7 +20,8 @@ from rgnir_torch.config import IndexKind
 from rgnir_torch.kernels import fused as tfused
 from rgnir_torch.kernels import hist as thist
 from rgnir_torch.kernels import select as tselect
-from rgnir_torch.ops.select import q24_keys
+from rgnir_torch.kernels.pipeline import analyze_image_kernel
+from rgnir_torch.ops.select import cdf_pick, ordered_u32_from_f32, q24_keys
 from rgnir_torch.ops.wb import wb_bounds_from_histogram
 from rgnir_torch.pipeline.dispatch import analyze_image_auto
 from rgnir_torch.pipeline.fused import analyze_image
@@ -29,6 +30,9 @@ from torch_parity import IDX_ATOL, MEAN_ATOL, VAR_ATOL
 
 KINDS = ("NDVI", "GNDVI", "NDWI")
 SHAPES = [(2, 64, 96), (1, 97, 333)]
+# the kernels each configuration of the path launches
+DEFAULT_PATH = {"hist", "fused", "byte_hist", "q24_tail"}
+ONEPASS_PATH = {"hist", "fused", "q24_onepass"}
 
 
 def _frames(seed, shape):
@@ -66,6 +70,59 @@ def test_cuda_kernels_match_plain(cuda, shape):
     b = tselect.q24_tail_plain(rows, prefix, means)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert float((a[2] - b[2]).abs().max()) / n <= VAR_ATOL
+    # the one-pass select from the round-0 pick, with and without a row map
+    rank = torch.full((rows.shape[0],), (n - 1) // 2, dtype=torch.int64, device=cuda)
+    sel0, rank1 = tselect.round0_pick(got.r0.transpose(0, 1).reshape(-1, 256), rank)
+    for take_prefix in (None, (3, 2)):
+        if take_prefix is not None:
+            keep = torch.arange(rows.shape[0], device=cuda).reshape(-1, 3)[:, :2].reshape(-1)
+            sel0, rank1, means = sel0[keep], rank1[keep], means[keep]
+        a = tk.q24_onepass(rows, sel0, rank1, means, take_prefix)
+        b = tselect.q24_onepass_plain(rows, sel0, rank1, means, take_prefix)
+        for i in (0, 1, 3):
+            assert torch.equal(a[i], b[i]), (take_prefix, i)
+        assert float((a[2] - b[2]).abs().max()) / n <= VAR_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("take_prefix", [None, (3, 2)])
+def test_cuda_byte_hist_f32_matches_plain(cuda, take_prefix):
+    rng = np.random.default_rng(11)
+    v = rng.normal(size=(6, 5000)).astype(np.float32)
+    v[:, ::7] = rng.choice(np.array([0.0, -0.0, np.inf, -np.inf, 1e-40, -1e-40], np.float32),
+                           size=v[:, ::7].shape)
+    rows = torch.from_numpy(v).to(cuda)
+    sel_rows = tselect._selected(rows, take_prefix)
+    keys = ordered_u32_from_f32(sel_rows)
+    rank = torch.full((sel_rows.shape[0],), 2499, dtype=torch.int64, device=cuda)
+    prefix = torch.zeros_like(rank)
+    for shift in (24, 16, 8, 0):
+        got = tk.byte_hist(rows, prefix, shift, key_mode="f32", take_prefix=take_prefix)
+        want = tselect.byte_hist_plain(rows, prefix, shift, "f32", take_prefix)
+        assert torch.equal(got, want), shift
+        sel, below, _ = cdf_pick(got, rank)
+        rank = rank - below
+        prefix = prefix | (sel << shift)
+    assert torch.equal(prefix, keys.sort(dim=1).values[:, 2499])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4999, 512 * 512])
+def test_cuda_onepass_median_matches_threepass(cuda, n):
+    rng = np.random.default_rng(12)
+    a = rng.integers(0, 256, (2, 3, n)).astype(np.float32)
+    b = rng.integers(0, 256, (2, 3, n)).astype(np.float32)
+    v = torch.from_numpy(np.clip((a - b) / (a + b + np.float32(1e-10)), -1, 1)).to(cuda)
+    r0 = torch.stack([torch.bincount(q24_keys(r) >> 16, minlength=256)
+                      for r in v.reshape(-1, n)]).to(torch.int32).reshape(2, 3, 256)
+    means = v.mean(dim=-1)
+    kw = dict(quantized=True, round0_hist=r0, means=means)
+    med1, ss1 = tk.masked_median(v, n, onepass=True, **kw)
+    med3, ss3 = tk.masked_median(v, n, onepass=False, **kw)
+    assert torch.equal(med1, med3)
+    assert float((ss1 - ss3).abs().max()) / n <= VAR_ATOL
+    want = np.median(v.cpu().numpy(), axis=-1).astype(np.float32)
+    assert np.array_equal(med1.cpu().numpy(), want)
 
 
 @pytest.mark.cuda
@@ -74,7 +131,8 @@ def test_cuda_path_matches_plain_path(cuda, shape):
     img = _frames(10, shape)
     before = {k: w.launches for k, w in tk.WRAPPERS.items()}
     got = analyze_image_auto(img, kinds=KINDS)
-    assert all(w.launches > before[k] for k, w in tk.WRAPPERS.items())
+    launched = {k for k, w in tk.WRAPPERS.items() if w.launches > before[k]}
+    assert launched == DEFAULT_PATH
     want = analyze_image(img, kinds=KINDS)
     assert torch.equal(got.wb, want.wb)
     for k in KINDS:
@@ -85,3 +143,16 @@ def test_cuda_path_matches_plain_path(cuda, shape):
             assert torch.equal(getattr(g, field), getattr(w, field)), (k, field)
         assert float((g.mean - w.mean).abs().max()) <= MEAN_ATOL
         assert float((g.std ** 2 - w.std ** 2).abs().max()) <= VAR_ATOL
+
+
+@pytest.mark.cuda
+def test_cuda_onepass_path_matches_default_path(cuda):
+    img = torch.from_numpy(_frames(13, (2, 64, 96))).to(cuda)
+    before = {k: w.launches for k, w in tk.WRAPPERS.items()}
+    got = analyze_image_kernel(img, kinds=KINDS, select_onepass=True)
+    launched = {k for k, w in tk.WRAPPERS.items() if w.launches > before[k]}
+    assert launched == ONEPASS_PATH
+    want = analyze_image_kernel(img, kinds=KINDS)
+    for k in KINDS:
+        assert torch.equal(got.stats[k].median, want.stats[k].median), k
+        assert float((got.stats[k].std ** 2 - want.stats[k].std ** 2).abs().max()) <= VAR_ATOL

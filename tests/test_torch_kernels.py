@@ -191,7 +191,9 @@ def test_cpu_tensors_take_the_plain_versions():
     rows = out.idx.reshape(1, -1)
     tk.masked_median_rows(rows, out.r0[:, :1].reshape(1, 256))
     assert {k: w.launches for k, w in tk.WRAPPERS.items()} == before
-    assert set(tk.WRAPPERS) == {"hist", "fused", "byte_hist", "q24_tail"}
+    tk.masked_median_rows(rows, out.r0[:, :1].reshape(1, 256), onepass=True)
+    assert {k: w.launches for k, w in tk.WRAPPERS.items()} == before
+    assert set(tk.WRAPPERS) == {"hist", "fused", "byte_hist", "q24_tail", "q24_onepass"}
 
 
 def test_non_cuda_device_raises():

@@ -5,7 +5,8 @@
 
 For each configuration of chip_smoke.py's path phase (NDVI, GNDVI and
 NDWI with renders and the 50-bin histogram; NDVI alone without the
-histogram) it prints:
+histogram; the three kinds again with the one-pass select,
+``analyze_image_kernel(select_onepass=True)``) it prints:
 
 - the wall time per call (host clock around calls that end in
   ``torch.cuda.synchronize()``) and MPix/s;
@@ -18,7 +19,11 @@ histogram) it prints:
   sum is the busy time. The profiler slows the host, so the idle share
   of the profiled window overstates an unprofiled call's.
 
-A Chrome trace of each window goes to ``build/torch_path_traces/``. Inputs are made
+A Chrome trace of each window goes to ``build/torch_path_traces/``.
+``--onepass-group-mb 8,16,24`` also times the one-pass select kernel on
+the batch's canonical index maps with each group size (the L2-resident
+share it takes at a time, ``select.ONEPASS_GROUP_BYTES``): CUDA events
+around each launch, L2 flushed before it, median of 20. Inputs are made
 from ``numpy.random.default_rng(0)``. Needs a CUDA device.
 """
 
@@ -31,10 +36,55 @@ import time
 
 import numpy as np
 
-CONFIGS = (
-    ("three kinds, renders, histogram", ("NDVI", "GNDVI", "NDWI"), True),
-    ("headline: NDVI, renders, no histogram", ("NDVI",), False),
+CONFIGS = (  # label, kinds, with_hist, select_onepass
+    ("three kinds, renders, histogram", ("NDVI", "GNDVI", "NDWI"), True, None),
+    ("headline: NDVI, renders, no histogram", ("NDVI",), False, None),
+    ("three kinds, renders, histogram, one-pass select", ("NDVI", "GNDVI", "NDWI"), True, True),
 )
+
+
+def sweep_onepass_groups(torch, img, sizes_mb, reps=20):
+    """Median device time of q24_onepass per group size, in ms."""
+    import statistics
+
+    from rgnir_torch.config import IndexKind
+    from rgnir_torch.kernels import select as ks
+    from rgnir_torch.kernels.fused import fused_analyze
+    from rgnir_torch.kernels.hist import channel_histograms
+    from rgnir_torch.ops.wb import wb_bounds_from_histogram
+
+    b, h, w = img.shape[:3]
+    n = h * w
+    kinds = tuple(IndexKind.parse(k) for k in ("NDVI", "GNDVI", "NDWI"))
+    lo, hi = wb_bounds_from_histogram(channel_histograms(img), n=n)
+    out = fused_analyze(img, lo, hi, kinds, round0=(True, True, False))
+    rows = out.idx.reshape(3 * b, n)[: 2 * b]
+    r0c = out.r0[:, :2].transpose(0, 1).reshape(2 * b, 256)
+    means = (out.sum[:, :2].T.reshape(-1) / n).to(torch.float32)
+    rank = torch.full((2 * b,), (n - 1) // 2, dtype=torch.int64, device="cuda")
+    sel0, rank1 = ks.round0_pick(r0c, rank)
+    flush = torch.ones(128 << 20, dtype=torch.uint8, device="cuda")
+    default = ks.ONEPASS_GROUP_BYTES
+    try:
+        for mb in sizes_mb:
+            ks.ONEPASS_GROUP_BYTES = mb << 20
+            for _ in range(2):
+                ks.q24_onepass(rows, sel0, rank1, means)
+            torch.cuda.synchronize()
+            events = [(torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+            torch.cuda._sleep(50_000_000)
+            for e0, e1 in events:
+                flush.amax()
+                e0.record()
+                ks.q24_onepass(rows, sel0, rank1, means)
+                e1.record()
+            torch.cuda.synchronize()
+            ms = statistics.median(e0.elapsed_time(e1) for e0, e1 in events)
+            print(f"  q24_onepass, groups of {mb} MB ({max(1, (mb << 20) // (4 * n))} rows of "
+                  f"{2 * b}): {ms:.4f} ms", flush=True)
+    finally:
+        ks.ONEPASS_GROUP_BYTES = default
 
 
 def main() -> int:
@@ -42,6 +92,8 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--size", type=int, default=1024)
     ap.add_argument("--calls", type=int, default=5)
+    ap.add_argument("--onepass-group-mb", default="",
+                    help="comma-separated group sizes to time the one-pass select at")
     args = ap.parse_args()
 
     import torch
@@ -54,6 +106,7 @@ def main() -> int:
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, root)
     from rgnir_torch.kernels._build import build
+    from rgnir_torch.kernels.pipeline import analyze_image_kernel
     from rgnir_torch.pipeline.dispatch import analyze_image_auto
 
     build()
@@ -66,8 +119,11 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     print(f"device: {torch.cuda.get_device_name(0)}; frames {shape}", flush=True)
 
-    for n, (label, kinds, with_hist) in enumerate(CONFIGS):
+    for n, (label, kinds, with_hist, onepass) in enumerate(CONFIGS):
         def call():
+            if onepass:
+                return analyze_image_kernel(img, kinds=kinds, with_hist=with_hist,
+                                            select_onepass=True)
             return analyze_image_auto(img, kinds=kinds, with_hist=with_hist)
 
         for _ in range(3):
@@ -105,6 +161,9 @@ def main() -> int:
               f"wall time, idle {1 - busy_ms / wall_ms:.1%}")
         for ms, count, name in rows[:20]:
             print(f"  {ms:9.4f} ms  x{count:<3d} {name[:100]}")
+    if args.onepass_group_mb:
+        print("\none-pass select kernel by group size:", flush=True)
+        sweep_onepass_groups(torch, img, [int(x) for x in args.onepass_group_mb.split(",")])
     return 0
 
 
