@@ -9,10 +9,19 @@ Phases, each reported on its own line:
 2. build: every CUDA kernel of the path, built from ``rgnir_torch/csrc``;
 3. kernels: each kernel held against its plain PyTorch version on the
    card, at the main path's shapes (8 x 1024^2 frames, three kinds) and
-   at awkward ones (1080 x 1920, 1021 x 1000 and 97 x 333), with its
-   time, the plain version's, a one-call PyTorch equivalent's where one
-   exists, and its bound; byte_hist in both key modes, and the one-pass
-   select where a row is within its budget (1024^2);
+   at awkward ones (1080 x 1920, 1021 x 1000, 97 x 333, a batch of three
+   97 x 333 frames, whose odd pixel count puts every frame and every
+   output row at another alignment, and the same as frames ``1:`` of a
+   larger batch, a contiguous view whose first byte is at an odd
+   address), with its time, the plain version's, a one-call PyTorch
+   equivalent's where one exists, and its bound; byte_hist in both key
+   modes, and the one-pass select where a row is within its budget
+   (1024^2); then hist and fused again at the main shape on a smooth
+   field (a low-frequency surface with a little noise, a saturated and a
+   black region: long runs of equal values, the worst case for
+   histogram atomics), checked and timed, fused in the headline
+   configuration (NDVI, renders, no histogram) timed on both inputs, and
+   fused with 2, 4 and 8 kinds checked at 97 x 333;
 4. paths, each with every kernel's launch count set to 0 just before it
    and read just after, and held to the path's own set of kernels:
    ``analyze_image_auto`` on 8 x 1024^2 x 3 frames with NDVI, GNDVI and
@@ -49,7 +58,8 @@ import numpy as np
 SEED = 0
 KINDS = ("NDVI", "GNDVI", "NDWI")
 MAIN_SHAPE = (8, 1024, 1024)
-AWKWARD_SHAPES = ((1, 1080, 1920), (1, 1021, 1000), (1, 97, 333))
+AWKWARD_SHAPES = ((1, 1080, 1920), (1, 1021, 1000), (1, 97, 333), (3, 97, 333))
+OFFSET_VIEW_SHAPE = (3, 97, 333)  # frames 1: of a batch of four
 ONEPASS_MAX_N = 1024 * 1024  # the one-pass select's budget, in elements per row
 IDX_ATOL, MEAN_ATOL, VAR_ATOL = 1.2e-7, 1e-5, 1e-4
 REPS = 20
@@ -144,34 +154,120 @@ def check_close(what, got, want, atol):
 
 # --- phase 3: each kernel against its plain version --------------------------
 
-def kernel_checks(torch, timer, rates, shape, timed):
+def uniform_frames(torch, shape, skip=0):
+    """Uniform random bytes, (B, H, W, 3) on the card. With ``skip``, the
+    frames after the first ``skip`` of a larger batch: a contiguous view
+    with a storage offset."""
+    b, h, w = shape
+    rng = np.random.default_rng(SEED + h)
+    img = torch.as_tensor(rng.integers(0, 256, (b + skip, h, w, 3), dtype=np.uint8),
+                          device="cuda")
+    return img[skip:]
+
+
+def smooth_field(shape, seed=SEED):
+    """A smooth field, (B, H, W, 3) uint8 in numpy: per frame and channel
+    a low-frequency surface plus a little noise, clipped to bytes, with a
+    saturated rectangle (255 in every channel) and a black one (0 in
+    every channel, so that a + b == 0 there)."""
+    b, h, w = shape
+    rng = np.random.default_rng(seed)
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    img = np.empty((b, h, w, 3), dtype=np.uint8)
+    for f in range(b):
+        for c in range(3):
+            fy, fx, py, px = rng.uniform(0.5, 2.5, 4)
+            surface = 140.0 + 130.0 * np.sin(2 * np.pi * (fy * y + py)) * np.cos(
+                2 * np.pi * (fx * x + px))
+            noise = rng.normal(0.0, 1.0, (h, w)).astype(np.float32)
+            img[f, :, :, c] = np.clip(surface + noise, 0, 255).astype(np.uint8)
+    img[:, : h // 4, : w // 3] = 255
+    img[:, h - h // 8:, w - w // 4:] = 0
+    return img
+
+
+def check_hist_fused(torch, what, img, kinds, round0, with_hist=True):
+    """hist and fused against their plain versions on ``img``; returns
+    (lo, hi, idx error, mean error, the fused kernel's output)."""
+    from rgnir_torch.kernels import fused as kf
+    from rgnir_torch.kernels import hist as kh
+    from rgnir_torch.ops.wb import wb_bounds_from_histogram
+
+    n = img.shape[1] * img.shape[2]
+    hist = kh.channel_histograms(img)
+    check_equal(torch, f"hist {what}", hist, kh.histograms_plain(img))
+    lo, hi = wb_bounds_from_histogram(hist, n=n)
+    out = kf.fused_analyze(img, lo, hi, kinds, True, with_hist, round0)
+    ref = kf.fused_analyze_plain(img, lo, hi, kinds, True, with_hist, round0)
+    for name in ("wb", "rgb", "min", "max", "above", "hist50", "r0"):
+        check_equal(torch, f"fused.{name} {what}", getattr(out, name), getattr(ref, name))
+    idx_err = check_close(f"fused.idx {what}", out.idx, ref.idx, IDX_ATOL)
+    mean_err = check_close(f"fused.mean {what}", out.sum / n, ref.sum / n, MEAN_ATOL)
+    return lo, hi, idx_err, mean_err, out
+
+
+def smooth_and_headline(torch, timer, rates, shape):
+    """hist and fused on the smooth field, checked and timed, and the
+    fused kernel in the headline configuration on both inputs."""
+    from rgnir_torch.config import IndexKind
+    from rgnir_torch.kernels import fused as kf
+    from rgnir_torch.kernels import hist as kh
+
+    kinds = tuple(IndexKind.parse(k) for k in KINDS)
+    round0 = (True, True, False)
+    smooth = torch.as_tensor(smooth_field(shape), device="cuda")
+    lo, hi, idx_err, mean_err, _ = check_hist_fused(
+        torch, f"smooth {shape}", smooth, kinds, round0)
+    log(f"kernels smooth {shape}: hist, fused match their plain versions "
+        f"(idx err {idx_err}, mean err {mean_err})")
+    log(f"kernel hist smooth {shape}: "
+        f"{timer.kernel(lambda: kh.channel_histograms(smooth)):.4f} ms")
+    fused_ms = timer.kernel(lambda: kf.fused_analyze(smooth, lo, hi, kinds, True, True, round0))
+    log(f"kernel fused smooth {shape}: {fused_ms:.4f} ms")
+    # the headline configuration: one kind, renders, no 50-bin histogram
+    px = shape[0] * shape[1] * shape[2]
+    bound_ms = px * (3 + 3 + 4 + 3) / rates[0] * 1e3
+    for label, img in (("uniform", uniform_frames(torch, shape)), ("smooth", smooth)):
+        hl, hh, _, _, _ = check_hist_fused(torch, f"headline {label} {shape}", img,
+                                           kinds[:1], (True,), with_hist=False)
+        ms = timer.kernel(lambda: kf.fused_analyze(img, hl, hh, kinds[:1], True, False, (True,)))
+        log(f"kernel fused headline (NDVI, renders, no histogram) {label} {shape}: "
+            f"{ms:.4f} ms, bound {bound_ms:.4f} ms by bytes")
+
+
+def other_kind_counts(torch, shape=(2, 97, 333)):
+    """The fused kernel's bodies that the paths below do not launch: two
+    kinds, and the generic body at four and eight."""
+    from rgnir_torch.config import IndexKind
+
+    img = uniform_frames(torch, shape)
+    for nk in (2, 4, 8):
+        kinds = tuple(IndexKind.parse(k) for k in (KINDS * 3)[:nk])
+        check_hist_fused(torch, f"{nk} kinds {shape}", img, kinds, (True,) * nk)
+    log(f"kernel fused {shape}: 2, 4 and 8 kinds match the plain version")
+
+
+def kernel_checks(torch, timer, rates, shape, timed, skip=0):
     from rgnir_torch.config import IndexKind
     from rgnir_torch.kernels import fused as kf
     from rgnir_torch.kernels import hist as kh
     from rgnir_torch.kernels import select as ks
     from rgnir_torch.ops.select import cdf_pick
-    from rgnir_torch.ops.wb import wb_bounds_from_histogram
 
     b, h, w = shape
     n = h * w
-    rng = np.random.default_rng(SEED + h)
-    img = torch.as_tensor(rng.integers(0, 256, shape + (3,), dtype=np.uint8),
-                          device="cuda")
+    img = uniform_frames(torch, shape, skip)
+    if skip:
+        require(img.is_contiguous() and img.data_ptr() % 2 == 1,
+                "the offset view starts at an odd address")
+        shape = f"{shape} at frames {skip}: of {b + skip}"
     kinds = tuple(IndexKind.parse(k) for k in KINDS)
     nk, nc = len(kinds), 2  # NDWI is derived from GNDVI on the path
     round0 = (True, True, False)
     records = {}
 
-    hist = kh.channel_histograms(img)
-    check_equal(torch, f"hist {shape}", hist, kh.histograms_plain(img))
-    lo, hi = wb_bounds_from_histogram(hist, n=n)
-
-    out = kf.fused_analyze(img, lo, hi, kinds, True, True, round0)
-    ref = kf.fused_analyze_plain(img, lo, hi, kinds, True, True, round0)
-    for name in ("wb", "rgb", "min", "max", "above", "hist50", "r0"):
-        check_equal(torch, f"fused.{name} {shape}", getattr(out, name), getattr(ref, name))
-    idx_err = check_close(f"fused.idx {shape}", out.idx, ref.idx, IDX_ATOL)
-    mean_err = check_close(f"fused.mean {shape}", out.sum / n, ref.sum / n, MEAN_ATOL)
+    lo, hi, idx_err, mean_err, out = check_hist_fused(torch, shape, img, kinds, round0)
 
     rows = out.idx.reshape(nk * b, n)[: nc * b]
     r0c = out.r0[:, :nc].transpose(0, 1).reshape(nc * b, 256)
@@ -483,6 +579,9 @@ def main() -> int:
     records = kernel_checks(torch, timer, rates, MAIN_SHAPE, timed=True)
     for shape in AWKWARD_SHAPES:
         kernel_checks(torch, timer, rates, shape, timed=False)
+    kernel_checks(torch, timer, rates, OFFSET_VIEW_SHAPE, timed=False, skip=1)
+    other_kind_counts(torch)
+    smooth_and_headline(torch, timer, rates, MAIN_SHAPE)
 
     # 4. path
     frames = torch.as_tensor(

@@ -31,7 +31,7 @@ MAX_KINDS = 8  # kMaxKinds in csrc/fused.cu
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _I32, _I32,
+_ARGTYPES = (_P, _P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _I32, _I32,
              _P, _P, _P, _P, _P, _P, _P, _P, _P)
 
 
@@ -57,6 +57,25 @@ def _tables(cmaps: Tuple[str, ...], device: torch.device):
     lut = np.ascontiguousarray(np.stack([get_lut(c)[:, :3] for c in cmaps]))
     return (torch.as_tensor(lut, device=device),
             torch.as_tensor(hist_edges(HIST_BINS, -1.0, 1.0), device=device))
+
+
+def _accumulator_sizes(b: int, nk: int, with_hist: bool) -> Tuple[int, ...]:
+    """int32 words of sum (float64), min, max, above, r0 and hist50."""
+    rows = b * nk
+    return (2 * rows, rows, rows, rows, rows * 256, rows * HIST_BINS if with_hist else 0)
+
+
+@functools.lru_cache(maxsize=64)
+def _accumulator_start(b: int, nk: int, with_hist: bool,
+                       device: torch.device) -> torch.Tensor:
+    """The kernel's accumulators as they start, in one int32 buffer: zero
+    sums and counts, +inf minima and -inf maxima (as float32 bits). A call
+    clones it, so all of them start with one copy."""
+    parts = torch.zeros(sum(_accumulator_sizes(b, nk, with_hist)), dtype=torch.int32,
+                        device=device).split(_accumulator_sizes(b, nk, with_hist))
+    parts[1].view(torch.float32).fill_(float("inf"))
+    parts[2].view(torch.float32).fill_(float("-inf"))
+    return torch.cat(parts)
 
 
 def fused_analyze_plain(
@@ -143,7 +162,11 @@ def fused_analyze(
     img = img.contiguous()
     b, h, w, _ = img.shape
     hw = h * w
-    bounds = torch.stack([lo, hi], dim=1).to(device=dev, dtype=torch.float32).contiguous()
+    lo = lo.to(device=dev, dtype=torch.float32).contiguous()
+    hi = hi.to(device=dev, dtype=torch.float32).contiguous()
+    if lo.shape != (b, 3) or hi.shape != (b, 3):
+        raise ValueError(f"expected ({b}, 3) bounds, got {tuple(lo.shape)} "
+                         f"and {tuple(hi.shape)}")
     luts, edges = _tables(tuple(k.cmap_name for k in kinds), dev)
     bands = np.array([band_indices(k) for k in kinds], dtype=np.int32)
     ia = np.ascontiguousarray(bands[:, 0])
@@ -155,19 +178,22 @@ def fused_analyze(
     idx = torch.empty(nk, b, h, w, dtype=torch.float32, device=dev)
     rgb = (torch.empty(nk, b, h, w, 3, dtype=torch.uint8, device=dev)
            if with_renders else None)
-    sums = torch.zeros(b, nk, dtype=torch.float64, device=dev)
-    mn = torch.full((b, nk), float("inf"), dtype=torch.float32, device=dev)
-    mx = torch.full((b, nk), float("-inf"), dtype=torch.float32, device=dev)
-    above = torch.zeros(b, nk, dtype=torch.int32, device=dev)
-    hist50 = (torch.zeros(b, nk, HIST_BINS, dtype=torch.int32, device=dev)
-              if with_hist else None)
-    r0 = torch.zeros(b, nk, 256, dtype=torch.int32, device=dev)
+    # the accumulators are views of one buffer (the float64 sums first, so
+    # they are 8-byte aligned), set to their starting values by one copy
+    parts = _accumulator_start(b, nk, with_hist, dev).clone().split(
+        _accumulator_sizes(b, nk, with_hist))
+    sums = parts[0].view(torch.float64).view(b, nk)
+    mn = parts[1].view(torch.float32).view(b, nk)
+    mx = parts[2].view(torch.float32).view(b, nk)
+    above = parts[3].view(b, nk)
+    r0 = parts[4].view(b, nk, 256)
+    hist50 = parts[5].view(b, nk, HIST_BINS) if with_hist else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     launch("fused", "rgnir_fused", _ARGTYPES, (
-        img.data_ptr(), bounds.data_ptr(), luts.data_ptr(), edges.data_ptr(),
+        img.data_ptr(), lo.data_ptr(), hi.data_ptr(), luts.data_ptr(), edges.data_ptr(),
         b, hw, nk, ia.ctypes.data, ib.ctypes.data, thr.ctypes.data,
         r0mask.ctypes.data, int(with_renders), int(with_hist),
         wb.data_ptr(), idx.data_ptr(), ptr(rgb), sums.data_ptr(),

@@ -26,10 +26,11 @@ from rgnir_torch.ops.wb import wb_bounds_from_histogram
 from rgnir_torch.pipeline.dispatch import analyze_image_auto
 from rgnir_torch.pipeline.fused import analyze_image
 
+from chip_smoke import smooth_field
 from torch_parity import IDX_ATOL, MEAN_ATOL, VAR_ATOL
 
 KINDS = ("NDVI", "GNDVI", "NDWI")
-SHAPES = [(2, 64, 96), (1, 97, 333)]
+SHAPES = [(2, 64, 96), (1, 97, 333), (3, 97, 333)]
 # the kernels each configuration of the path launches
 DEFAULT_PATH = {"hist", "fused", "byte_hist", "q24_tail"}
 ONEPASS_PATH = {"hist", "fused", "q24_onepass"}
@@ -82,6 +83,48 @@ def test_cuda_kernels_match_plain(cuda, shape):
         for i in (0, 1, 3):
             assert torch.equal(a[i], b[i]), (take_prefix, i)
         assert float((a[2] - b[2]).abs().max()) / n <= VAR_ATOL
+
+
+def _hist_fused_match_plain(img, kind_names, with_hist):
+    n = img.shape[1] * img.shape[2]
+    hist = tk.channel_histograms(img)
+    assert torch.equal(hist, thist.histograms_plain(img))
+    lo, hi = wb_bounds_from_histogram(hist, n=n)
+    kinds = tuple(IndexKind.parse(k) for k in kind_names)
+    got = tk.fused_analyze(img, lo, hi, kinds, True, with_hist)
+    want = tfused.fused_analyze_plain(img, lo, hi, kinds, True, with_hist,
+                                      (True,) * len(kinds))
+    for name in ("wb", "rgb", "min", "max", "above", "r0") + (("hist50",) if with_hist else ()):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert float((got.idx - want.idx).abs().max()) <= IDX_ATOL
+    assert float((got.sum - want.sum).abs().max()) / n <= MEAN_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind_names,with_hist", [(KINDS, True), (("NDVI",), False)])
+def test_cuda_hist_fused_offset_view_match_plain(cuda, kind_names, with_hist):
+    """Frames 1: of a batch of 97 x 333 frames: a contiguous view whose
+    first byte is at an odd address, every frame at another alignment."""
+    img = torch.from_numpy(_frames(15, (4, 97, 333))).to(cuda)[1:]
+    assert img.is_contiguous() and img.data_ptr() % 2 == 1
+    _hist_fused_match_plain(img, kind_names, with_hist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 256, 384), (3, 97, 333)])
+def test_cuda_hist_fused_smooth_field_match_plain(cuda, shape):
+    """chip_smoke.py's smooth field: long runs of equal values, a
+    saturated and a black region (a + b == 0)."""
+    img = torch.from_numpy(smooth_field(shape, seed=14)).to(cuda)
+    _hist_fused_match_plain(img, KINDS, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk", [2, 4, 8])
+def test_cuda_fused_other_kind_counts_match_plain(cuda, nk):
+    """Two kinds (a template body) and four and eight (the generic one)."""
+    img = torch.from_numpy(_frames(16, (2, 97, 333))).to(cuda)
+    _hist_fused_match_plain(img, (KINDS * 3)[:nk], True)
 
 
 @pytest.mark.cuda
