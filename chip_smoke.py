@@ -21,7 +21,13 @@ Phases, each reported on its own line:
    black region: long runs of equal values, the worst case for
    histogram atomics), checked and timed, fused in the headline
    configuration (NDVI, renders, no histogram) timed on both inputs, and
-   fused with 2, 4 and 8 kinds checked at 97 x 333;
+   fused with 2, 4 and 8 kinds checked at 97 x 333; then the validity
+   modes of the sharded mosaic's kernels: hist and fused with ``n_valid``
+   at 0, 1, a count that ends mid-word and all but one, on both inputs,
+   and byte_hist (q24 and f32 keys) with prefixes and ``live_rc``
+   rectangles (among them fewer live columns than the block's and no
+   live row), each against its plain version and timed beside its
+   default mode in the same call;
 4. paths, each with every kernel's launch count set to 0 just before it
    and read just after, and held to the path's own set of kernels:
    ``analyze_image_auto`` on 8 x 1024^2 x 3 frames with NDVI, GNDVI and
@@ -30,8 +36,16 @@ Phases, each reported on its own line:
    ``pipeline.fused.analyze_image`` on the card; the same three-kind
    batch through ``analyze_image_kernel(select_onepass=True)``, whose
    medians must equal the default path's bit for bit; the f32 select
-   (``masked_median`` and ``radix_order_statistic``) against a sort; and
-   a small frame against numpy;
+   (``masked_median`` and ``radix_order_statistic``) against a sort; a
+   small frame against numpy; then ``parallel.analyze_mosaic`` over a
+   4093 x 4099 mosaic with three kinds and renders, on a 1-D mesh of four
+   shards of the one card, a (2, 2) mesh (row and column padding) and a
+   1-D mesh with ``valid_rows`` over a pre-padded mosaic: the kernel body
+   against the plain (``impl="jnp"``) body and the global statistics
+   against the one-frame path, the 1-D body's launches counted (hist 4,
+   fused 4, byte_hist 8 per kind); the f32 sharded select on the same
+   shards; and the kernel body's wall time and MPix/s at 8192^2 on one
+   and on four shards;
 5. the kernel self-test (``rgnir_torch.testing.selftest``), which must
    pass;
 6. a ``kernels`` JSON line for the records.
@@ -529,6 +543,246 @@ def run_f32_select(torch, wrappers, rows):
     return launches
 
 
+# --- phase 3b: the validity modes ----------------------------------------------
+
+def n_valid_counts(hw):
+    """0, 1, a count that ends mid-word (and mid-row), and all but one."""
+    return (0, 1, hw // 2 + 1, hw - 1)
+
+
+def validity_checks(torch, timer, rates, shape, smi):
+    """hist and fused with ``n_valid``, and byte_hist with a prefix and a
+    ``live_rc`` rectangle (q24 and f32 keys), against their plain versions
+    on the uniform and the smooth inputs, each timed beside its default
+    mode at the same shape in the same call. Returns the records of the
+    ``kernels`` line's mode entries, timed at the count nearest the
+    default (all but one valid) and at a 1023 x 1021 rectangle."""
+    from rgnir_torch.config import IndexKind
+    from rgnir_torch.kernels import fused as kf
+    from rgnir_torch.kernels import hist as kh
+    from rgnir_torch.kernels import select as ks
+    from rgnir_torch.ops.select import cdf_pick
+    from rgnir_torch.ops.wb import wb_bounds_from_histogram
+
+    b, h, w = shape
+    hw = h * w
+    kinds = tuple(IndexKind.parse(k) for k in KINDS)
+    round0 = (True, True, False)
+    bw_rate = rates[0]
+    records = {}
+    inputs = (("uniform", uniform_frames(torch, shape)),
+              ("smooth", torch.as_tensor(smooth_field(shape), device="cuda")))
+    for label, img in inputs:
+        lo, hi = wb_bounds_from_histogram(kh.channel_histograms(img), n=hw)
+        times = {"hist": {}, "fused": {}}
+        idx_err = {}
+        for nv in n_valid_counts(hw):
+            what = f"{label} {shape} n_valid={nv}"
+            check_equal(torch, f"hist {what}", kh.channel_histograms(img, n_valid=nv),
+                        kh.histograms_plain(img, nv))
+            out = kf.fused_analyze(img, lo, hi, kinds, True, True, round0, n_valid=nv)
+            ref = kf.fused_analyze_plain(img, lo, hi, kinds, True, True, round0, n_valid=nv)
+            for name in ("wb", "rgb", "min", "max", "above", "hist50", "r0"):
+                check_equal(torch, f"fused.{name} {what}", getattr(out, name), getattr(ref, name))
+            idx_err[nv] = check_close(f"fused.idx {what}", out.idx, ref.idx, IDX_ATOL)
+            check_close(f"fused.mean {what}", out.sum / max(nv, 1), ref.sum / max(nv, 1),
+                        MEAN_ATOL)
+        for nv in (None,) + n_valid_counts(hw):
+            times["hist"][nv] = timer.kernel(lambda: kh.channel_histograms(img, n_valid=nv))
+            times["fused"][nv] = timer.kernel(
+                lambda: kf.fused_analyze(img, lo, hi, kinds, True, True, round0, n_valid=nv))
+        for name, t in times.items():
+            log(f"kernel {name} n_valid {label} {shape}: default {t[None]:.4f} ms; "
+                + ", ".join(f"n_valid={nv} {ms:.4f} ms ({ms / t[None]:.3f}x)"
+                            for nv, ms in t.items() if nv is not None) + f" [{smi}]")
+        if label == "uniform":
+            nv = hw - 1
+            codes = (img.reshape(b, hw, 3)[:, :nv].long() + 256 * torch.arange(3, device="cuda")
+                     + 768 * torch.arange(b, device="cuda")[:, None, None]).reshape(-1)
+            hist_bytes = b * nv * 3 + b * 768 * 4
+            records["hist_n_valid"] = dict(
+                ms=times["hist"][nv], plain_ms=timer.kernel(lambda: kh.histograms_plain(img, nv)),
+                library_ms=timer.kernel(lambda: torch.bincount(codes, minlength=b * 768)),
+                bytes=hist_bytes, bound=(hist_bytes / bw_rate * 1e3, "bytes"), max_abs_err=0.0)
+            fused_bytes = b * hw * (3 + 3 + 4 * len(kinds) + 3 * len(kinds))
+            records["fused_n_valid"] = dict(
+                ms=times["fused"][nv],
+                plain_ms=timer.kernel(lambda: kf.fused_analyze_plain(img, lo, hi, kinds, True,
+                                                                     True, round0, nv)),
+                library_ms=None, bytes=fused_bytes,
+                bound=(fused_bytes / bw_rate * 1e3, "bytes"), max_abs_err=idx_err[nv])
+            default_out = kf.fused_analyze(img, lo, hi, kinds, True, True, round0)
+    log(f"kernels {shape}: hist and fused with n_valid in {n_valid_counts(hw)} match their "
+        f"plain versions on the uniform and the smooth inputs")
+
+    # byte_hist: the two canonical kinds' index maps, each row a 1024 x
+    # 1024 block; each round's prefix from a real pick over the whole row
+    nc = 2
+    rows = default_out.idx.reshape(len(kinds) * b, hw)[: nc * b]
+    rank = torch.full((nc * b,), (hw - 1) // 2, dtype=torch.int64, device="cuda")
+    sel, _, _ = cdf_pick(default_out.r0[:, :nc].transpose(0, 1).reshape(nc * b, 256), rank)
+    f32_top = ks.byte_hist(rows, torch.zeros_like(rank), 24, key_mode="f32")
+    f32_sel, _, _ = cdf_pick(f32_top, rank)
+    cases = {"q24": (sel << 16, 8), "f32": (f32_sel << 24, 16)}
+    rects = ((h, w), (h - 1, w - 3), (h, w - 24), (0, w), (h - 1, 1), (1, 0))
+    for key_mode, (prefix, shift) in cases.items():
+        for kw in ([dict(n_valid=nv) for nv in n_valid_counts(hw)]
+                   + [dict(live_rc=rc, row_major_cols=w) for rc in rects]):
+            check_equal(torch, f"byte_hist {key_mode} {kw} {shape}",
+                        ks.byte_hist(rows, prefix, shift, key_mode, **kw),
+                        ks.byte_hist_plain(rows, prefix, shift, key_mode, **kw))
+        modes = {"default": {}, "n_valid": dict(n_valid=hw - 1),
+                 "live_rc": dict(live_rc=(h - 1, w - 3), row_major_cols=w)}
+        # in turns (default, prefix, rectangle, rectangle, prefix, default):
+        # each mode's time is the mean of its two turns
+        turns = list(modes) + list(modes)[::-1]
+        timed = [(m, timer.kernel(lambda: ks.byte_hist(rows, prefix, shift, key_mode,
+                                                       **modes[m]))) for m in turns]
+        t = {m: statistics.mean(ms for mm, ms in timed if mm == m) for m in modes}
+        log(f"kernel byte_hist {key_mode} shift {shift} {shape}, in turns "
+            f"{', '.join(f'{m} {ms:.4f}' for m, ms in timed)} ms: default {t['default']:.4f} ms, "
+            f"n_valid={hw - 1} {t['n_valid']:.4f} ms ({t['n_valid'] / t['default']:.3f}x), "
+            f"live_rc={(h - 1, w - 3)} of {(h, w)} {t['live_rc']:.4f} ms "
+            f"({t['live_rc'] / t['default']:.3f}x) [{smi}]")
+        for m in ("n_valid", "live_rc"):
+            live = hw - 1 if m == "n_valid" else (h - 1) * (w - 3)
+            nbytes = nc * b * live * 4
+            name = ("byte_hist" if key_mode == "q24" else "byte_hist_f32") + "_" + m
+            records[name] = dict(
+                ms=t[m], plain_ms=timer.kernel(
+                    lambda: ks.byte_hist_plain(rows, prefix, shift, key_mode, **modes[m])),
+                library_ms=None, bytes=nbytes, bound=(nbytes / bw_rate * 1e3, "bytes"),
+                max_abs_err=0.0)
+    log(f"kernels {shape}: byte_hist (q24 and f32) with prefixes {n_valid_counts(hw)} and "
+        f"rectangles {rects} of {(h, w)} blocks matches its plain version")
+    return records
+
+
+# --- phase 4b: the sharded mosaic ---------------------------------------------
+
+MOSAIC_SHAPE = (4093, 4099)
+MOSAIC_BIG = 8192  # the timed mosaic's side
+MOSAIC_PATH = ("hist", "fused", "byte_hist")
+
+
+def ceil_to(x, m):
+    return -(-x // m) * m
+
+
+def check_mosaic(torch, what, got, want, kinds, h, w, pixels=True):
+    """One mosaic result against another: bytes, index maps, renders (in
+    the valid region: a masked pixel's render is zero bytes in the kernel
+    body, as on the TPU) and the global statistics."""
+    if pixels:
+        check_equal(torch, f"{what} wb", got.wb[:h, :w], want.wb[:h, :w])
+    for k in kinds:
+        if pixels:
+            check_close(f"{what} idx {k}", got.indices[k][:h, :w], want.indices[k][:h, :w],
+                        IDX_ATOL)
+            if want.renders:
+                check_equal(torch, f"{what} render {k}", got.renders[k][:h, :w],
+                            want.renders[k][:h, :w])
+        g, r = got.stats[k], want.stats[k]
+        for field in ("min", "max", "median", "coverage_pct", "n", "histogram"):
+            check_equal(torch, f"{what} {k}.{field}", getattr(g, field).reshape(-1),
+                        getattr(r, field).reshape(-1).to(getattr(g, field).device))
+        check_close(f"{what} {k}.mean", g.mean, r.mean, MEAN_ATOL)
+        check_close(f"{what} {k}.var", g.std ** 2, r.std ** 2, VAR_ATOL)
+        for name, t in (("mean", g.mean), ("std", g.std), ("median", g.median)):
+            require(bool(torch.isfinite(t).all()), f"{what} {k}.{name} finite")
+
+
+def mosaic_paths(torch, timer, wrappers, smi):
+    """``analyze_mosaic`` on the card: a 1-D mesh of four shards of one
+    card over a (4093, 4099) mosaic, a (2, 2) mesh (row and column
+    padding) and a 1-D mesh with ``valid_rows`` over a pre-padded mosaic,
+    ``impl="kernel"`` against ``impl="jnp"`` and the global statistics
+    against the one-frame path; the f32 sharded select on the same
+    shards; then the wall time of the kernel body at 8192^2. Returns the
+    launch counts of each mode's run."""
+    from rgnir_torch.kernels.select import masked_median_sharded
+    from rgnir_torch.parallel import analyze_mosaic, make_mesh
+    from rgnir_torch.pipeline.dispatch import analyze_image_auto
+
+    h, w = MOSAIC_SHAPE
+    cuda = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 2)
+    mosaic = torch.as_tensor(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), device="cuda")
+    one_frame = analyze_image_auto(mosaic, kinds=KINDS, device="cuda")
+    h4, h2, w2 = ceil_to(h, 4), ceil_to(h, 2), ceil_to(w, 2)
+    pre = torch.zeros((h4 + 4, w, 3), dtype=torch.uint8, device="cuda")
+    pre[:h] = mosaic
+    mesh4 = make_mesh((4,), ("d",), devices=[cuda] * 4)
+    mesh22 = make_mesh((2, 2), ("dr", "dc"), devices=[cuda] * 4)
+    runs = {}
+    for name, mesh, img, valid_rows, padded in (
+            ("1-D, 4 shards", mesh4, mosaic, None, (h4, w)),
+            ("(2, 2)", mesh22, mosaic, None, (h2, w2)),
+            ("1-D, 4 shards, valid_rows", mesh4, pre, h, (h4 + 4, w))):
+        def call(impl):
+            return analyze_mosaic(img, kinds=KINDS, mesh=mesh, with_renders=True, impl=impl,
+                                  valid_rows=valid_rows)
+
+        got, launches = count_launches(torch, wrappers, MOSAIC_PATH, f"mosaic {name}",
+                                       lambda: call("kernel"))
+        want = call("jnp")
+        check_mosaic(torch, f"mosaic {name} kernel vs jnp", got, want, KINDS, h, w)
+        check_mosaic(torch, f"mosaic {name} vs the one-frame path", got, one_frame, KINDS,
+                     h, w, pixels=False)
+        require(tuple(got.wb.shape) == padded + (3,),
+                f"mosaic {name}: padded shape {tuple(got.wb.shape)}")
+        runs[name] = (got, launches)
+        log(f"mosaic {name} {(h, w)} kinds={list(KINDS)} renders: kernel body matches the "
+            f"jnp body and the one-frame path; launches {launches}")
+    # two byte_hist rounds per shard and kind: round 0 is fused's
+    expected = {"hist": 4, "fused": 4, "byte_hist": 8 * len(KINDS), "q24_tail": 0,
+                "q24_onepass": 0}
+    launches_1d, launches_22 = runs["1-D, 4 shards"][1], runs["(2, 2)"][1]
+    require(launches_1d == expected, f"1-D kernel body launches {launches_1d} == {expected}")
+
+    # the f32 sharded select over the same shards, prefix and rectangle
+    f32 = {}
+    for name, layout in (("n_valid", "1-D, 4 shards"), ("live_rc", "(2, 2)")):
+        got = runs[layout][0]
+        for k in KINDS[:1]:
+            full = got.indices[k]
+            if name == "n_valid":
+                bh = full.shape[0] // 4
+                shards = list(full.split(bh))
+                kw = dict(n_live=[min(max(h - r * bh, 0), bh) * w for r in range(4)])
+            else:
+                bh, bw = full.shape[0] // 2, full.shape[1] // 2
+                shards = [full[r * bh:(r + 1) * bh, c * bw:(c + 1) * bw].contiguous()
+                          for r in range(2) for c in range(2)]
+                kw = dict(n_live=None, live_rc=[(min(max(h - r * bh, 0), bh),
+                                                 min(max(w - c * bw, 0), bw))
+                                                for r in range(2) for c in range(2)])
+            med, launches = count_launches(
+                torch, wrappers, ("byte_hist",), f"f32 sharded select {name}",
+                lambda: masked_median_sharded(shards, h * w, quantized=False, **kw))
+            check_equal(torch, f"f32 sharded select {name} {k} vs q24", med.reshape(1),
+                        got.stats[k].median.reshape(1))
+            f32[name] = launches
+            log(f"f32 sharded select ({name}) {k}: equals the q24 median; launches {launches}")
+
+    # wall time of the kernel body at MOSAIC_BIG^2, on 1 and on 4 shards
+    big = torch.as_tensor(np.random.default_rng(SEED + 3).integers(
+        0, 256, (MOSAIC_BIG, MOSAIC_BIG, 3), dtype=np.uint8), device="cuda")
+    del runs, pre, mosaic, one_frame
+    for n in (1, 4):
+        mesh = make_mesh((n,), ("d",), devices=[cuda] * n)
+        ms = timer.wall(lambda: analyze_mosaic(big, kinds=KINDS, mesh=mesh, with_renders=True,
+                                               impl="kernel"), reps=5, warm=1)
+        log(f"mosaic kernel body {MOSAIC_BIG}^2 kinds={list(KINDS)} renders, {n} shard(s) of "
+            f"one card: {ms:.4f} ms per call, {MOSAIC_BIG ** 2 / 1e6 / ms * 1e3:.1f} MPix/s "
+            f"[{smi}]")
+    return {"hist_n_valid": launches_1d["hist"], "fused_n_valid": launches_1d["fused"],
+            "byte_hist_n_valid": launches_1d["byte_hist"],
+            "byte_hist_live_rc": launches_22["byte_hist"],
+            "byte_hist_f32_n_valid": f32["n_valid"]["byte_hist"],
+            "byte_hist_f32_live_rc": f32["live_rc"]["byte_hist"]}
+
+
 KERNEL_SOURCES = {
     "hist": ("rgnir_torch/csrc/hist.cu", "rgnir_tpu/kernels/hist.py:39"),
     "fused": ("rgnir_torch/csrc/fused.cu", "rgnir_tpu/kernels/fused.py:78"),
@@ -536,6 +790,13 @@ KERNEL_SOURCES = {
     "q24_tail": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:220"),
     "byte_hist_f32": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:55"),
     "q24_onepass": ("rgnir_torch/csrc/onepass.cu", "rgnir_tpu/kernels/select.py:333"),
+    # the validity modes, launched by the sharded mosaic's kernel bodies
+    "hist_n_valid": ("rgnir_torch/csrc/hist.cu", "rgnir_tpu/kernels/hist.py:39"),
+    "fused_n_valid": ("rgnir_torch/csrc/fused.cu", "rgnir_tpu/kernels/fused.py:78"),
+    "byte_hist_n_valid": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:55"),
+    "byte_hist_live_rc": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:55"),
+    "byte_hist_f32_n_valid": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:55"),
+    "byte_hist_f32_live_rc": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:55"),
 }
 
 
@@ -582,6 +843,7 @@ def main() -> int:
     kernel_checks(torch, timer, rates, OFFSET_VIEW_SHAPE, timed=False, skip=1)
     other_kind_counts(torch)
     smooth_and_headline(torch, timer, rates, MAIN_SHAPE)
+    records.update(validity_checks(torch, timer, rates, MAIN_SHAPE, smi))
 
     # 4. path
     frames = torch.as_tensor(
@@ -595,6 +857,7 @@ def main() -> int:
     check_numpy(torch, analyze_image_auto)
     path_launches = dict(launches, q24_onepass=onepass_launches["q24_onepass"],
                          byte_hist_f32=f32_launches["byte_hist"])
+    path_launches.update(mosaic_paths(torch, timer, WRAPPERS, smi))
 
     # 5. the kernel self-test
     from rgnir_torch.testing import selftest

@@ -34,6 +34,12 @@
 //   counted one per thread step by the frame's first block.
 // - The block adds each nonzero bin to the frame's global counts with
 //   one atomic. Counts are integers: exact in any order.
+// - Positional validity (the TPU kernel's n_valid, for the sharded
+//   mosaic): only the first frame_bytes bytes of each frame, its valid
+//   length, are read and counted, and the frames lie frame_stride bytes
+//   apart. So the mask costs nothing: a masked frame is a shorter frame,
+//   its ragged end (mid-pixel, mid-word) counted one byte per thread like
+//   any frame's tail, and by default the two are equal.
 #include <algorithm>
 
 #include "common.cuh"
@@ -65,13 +71,13 @@ __device__ __forceinline__ void count16(const uint4& v, int* h0, int* h1, int* h
 }
 
 __global__ void __launch_bounds__(kThreads)
-hist_kernel(const uint8_t* __restrict__ img, long long frame_bytes,
-            int* __restrict__ out) {
+hist_kernel(const uint8_t* __restrict__ img, long long frame_stride,
+            long long frame_bytes, int* __restrict__ out) {
   __shared__ int sh[3 * 256];
 
   const int frame = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const uint8_t* base = img + static_cast<long long>(frame) * frame_bytes;
+  const uint8_t* base = img + static_cast<long long>(frame) * frame_stride;
   int* h = sh;
 
   // Bytes before the first 16-byte aligned address of the frame.
@@ -136,23 +142,27 @@ hist_kernel(const uint8_t* __restrict__ img, long long frame_bytes,
 
 }  // namespace
 
-// img: (frames, H, W, 3) uint8, contiguous; out: (frames, 3, 256) int32,
-// zeroed by the caller.
-RGNIR_EXPORT int rgnir_hist(const void* img, long long frames,
-                            long long frame_bytes, void* out, void* stream) {
-  if (frames > 0 && frame_bytes > 0) {
+// img: (frames, H, W, 3) uint8, contiguous, frames stride bytes apart;
+// the first valid bytes of each frame (valid <= stride, a multiple of 3)
+// are counted into out: (frames, 3, 256) int32, zeroed by the caller.
+RGNIR_EXPORT int rgnir_hist(const void* img, long long frames, long long stride,
+                            long long valid, void* out, void* stream) {
+  if (valid < 0 || valid > stride || valid % 3 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (frames > 0 && stride > 0) {
     int dev = 0, sms = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     // Blocks of a frame: its share of the resident grid, and no more than
     // give every warp an item.
     const long long resident = static_cast<long long>(sms) * kBlocksPerSM;
-    const long long want = (frame_bytes / kItemBytes + kWarps - 1) / kWarps;
+    const long long want = (valid / kItemBytes + kWarps - 1) / kWarps;
     const long long per_frame =
         std::max(1LL, std::min(want, (resident + frames - 1) / frames));
     dim3 grid(static_cast<unsigned>(per_frame), static_cast<unsigned>(frames));
     hist_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(img), frame_bytes, static_cast<int*>(out));
+        static_cast<const uint8_t*>(img), stride, valid, static_cast<int*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,17 @@
 // group of `group` rows are selected, and the skipped rows are never
 // read; group = take = 1 selects every row.
 //
+// Positional validity of byte_hist (the TPU kernel's modes, for the
+// sharded median): a prefix (the first n_valid elements of each row) or
+// a rectangle (each row a row-major (n / row_cols, row_cols) block of
+// which the top-left rows_live x cols_live count). The prefix is a
+// shorter row: the default instantiation's loop unchanged (the default is
+// n_valid = n), reading only the valid elements. The rectangle has its
+// own instantiation, which walks the live rows whole as the prefix walks
+// its elements and counts the live columns, a thread carrying its column
+// from step to step (PERF.md has the variants measured). Positions and
+// columns are 64-bit.
+//
 // Bound: memory. Each pass reads every selected element once (4 bytes):
 // 2 kinds x 8 x 1024^2 elements are 67 MB, about 20 us at 3.35 TB/s.
 // The per-element work (the key, a compare, and for the histogram a
@@ -23,6 +34,8 @@
 // far below the card's rate. Design: a grid of (chunk, row) blocks,
 // coalesced loads one element per thread per step; the tail's mins and
 // sum go through warp shuffles to one atomic per block.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -46,12 +59,16 @@ __device__ __forceinline__ unsigned radix_key(float v) {
   return Mode == kF32 ? f32_key(v) : static_cast<unsigned>(q24_key(v));
 }
 
-// 256-bin histogram of key byte (key >> shift) & 255 over the elements
-// whose key bits above that byte equal those of the row's prefix. The
-// top round (hi_mask 0) counts every element.
-template <int Mode>
+// 256-bin histogram of key byte (key >> shift) & 255 over the valid
+// elements whose key bits above that byte equal those of the row's
+// prefix. The top round (hi_mask 0) counts every valid element. A row
+// holds n elements, of which the valid are its first `live`, or with
+// kRect the columns before `cols` of its first `live` elements, whole
+// rows of a row_cols-wide block.
+template <int Mode, bool kRect>
 __global__ void __launch_bounds__(kThreads)
-byte_hist_kernel(const float* __restrict__ vals, long long n,
+byte_hist_kernel(const float* __restrict__ vals, long long n, long long live,
+                 long long cols, long long row_cols,
                  const unsigned* __restrict__ prefix, int shift,
                  unsigned hi_mask, int group, int take, int* __restrict__ out) {
   __shared__ int sh[256];
@@ -61,10 +78,26 @@ byte_hist_kernel(const float* __restrict__ vals, long long n,
   const float* x = vals + input_row(row, group, take) * n;
   const unsigned want = prefix[row] & hi_mask;
   const long long start = static_cast<long long>(blockIdx.x) * kElemsPerBlock;
-  const long long end = min(start + kElemsPerBlock, n);
-  for (long long i = start + threadIdx.x; i < end; i += kThreads) {
-    const unsigned key = radix_key<Mode>(__ldg(x + i));
-    if ((key & hi_mask) == want) atomicAdd(&sh[(key >> shift) & 255u], 1);
+  const long long end = min(start + kElemsPerBlock, live);
+  auto count = [&](float v, bool valid) {
+    const unsigned key = radix_key<Mode>(v);
+    if (valid && (key & hi_mask) == want) atomicAdd(&sh[(key >> shift) & 255u], 1);
+  };
+  if (!kRect) {
+    for (long long i = start + threadIdx.x; i < end; i += kThreads) count(__ldg(x + i), true);
+  } else {
+    // the same walk over the rectangle's rows, whole: every element is
+    // loaded (a load under a branch would stall the loop; the columns past
+    // `cols` are a sliver of the rows) and those before `cols` counted. A
+    // thread's column is carried from step to step: a step of kThreads is
+    // step_c columns and at most one row wrap.
+    long long c = (start + threadIdx.x) % row_cols;
+    const long long step_c = kThreads % row_cols;
+    for (long long i = start + threadIdx.x; i < end; i += kThreads) {
+      count(__ldg(x + i), c < cols);
+      c += step_c;
+      if (c >= row_cols) c -= row_cols;
+    }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < 256; i += kThreads) {
@@ -102,17 +135,46 @@ dim3 row_grid(long long rows, long long n) {
               static_cast<unsigned>(rows));
 }
 
+template <int Mode>
+void launch_byte_hist(dim3 grid, cudaStream_t s, const float* v, long long n,
+                      long long live, long long cols, long long row_cols,
+                      const unsigned* p, int shift, unsigned hi_mask, int group,
+                      int take, int* o) {
+  if (row_cols > 0) {
+    byte_hist_kernel<Mode, true><<<grid, kThreads, 0, s>>>(
+        v, n, live, cols, row_cols, p, shift, hi_mask, group, take, o);
+  } else {
+    byte_hist_kernel<Mode, false><<<grid, kThreads, 0, s>>>(
+        v, n, live, cols, row_cols, p, shift, hi_mask, group, take, o);
+  }
+}
+
 }  // namespace
 
 // vals: (B, n) f32 contiguous; rows: the selected rows (B / group *
 // take); prefix: (rows,) u32 bit patterns; key_mode: 0 q24, 1 f32; out:
-// (rows, 256) i32, zeroed by the caller.
+// (rows, 256) i32, zeroed by the caller. Validity: with row_cols == 0 the
+// first n_valid elements of each row count (n_valid = n: all); with
+// row_cols > 0 each row is a row-major (n / row_cols, row_cols) block of
+// which the top-left n_valid (rows) x cols_live rectangle counts.
 RGNIR_EXPORT int rgnir_byte_hist(const void* vals, long long rows, long long n,
-                                 const void* prefix, int shift, int key_mode,
-                                 int group, int take, void* out, void* stream) {
+                                 long long n_valid, long long cols_live,
+                                 long long row_cols, const void* prefix, int shift,
+                                 int key_mode, int group, int take, void* out,
+                                 void* stream) {
   const int top_shift = key_mode == kF32 ? 24 : 16;
   if (shift < 0 || shift > top_shift || shift % 8 != 0 || take < 1 ||
-      group < take) {
+      group < take || n_valid < 0 || row_cols < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  long long live = n_valid;  // the positions a row's walk covers
+  if (row_cols > 0) {
+    if (n % row_cols != 0 || n_valid > n / row_cols || cols_live < 0 ||
+        cols_live > row_cols) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    live = n_valid * row_cols;  // the live rows, whole
+  } else if (n_valid > n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // The key bits above this round's byte; none in the top round. The
@@ -123,12 +185,14 @@ RGNIR_EXPORT int rgnir_byte_hist(const void* vals, long long rows, long long n,
     const auto* p = static_cast<const unsigned*>(prefix);
     auto* o = static_cast<int*>(out);
     const auto s = static_cast<cudaStream_t>(stream);
+    const long long blocks = std::max(1LL, (live + kElemsPerBlock - 1) / kElemsPerBlock);
+    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(rows));
     if (key_mode == kF32) {
-      byte_hist_kernel<kF32><<<row_grid(rows, n), kThreads, 0, s>>>(
-          v, n, p, shift, hi_mask, group, take, o);
+      launch_byte_hist<kF32>(grid, s, v, n, live, cols_live, row_cols, p, shift,
+                             hi_mask, group, take, o);
     } else {
-      byte_hist_kernel<kQ24><<<row_grid(rows, n), kThreads, 0, s>>>(
-          v, n, p, shift, hi_mask, group, take, o);
+      launch_byte_hist<kQ24>(grid, s, v, n, live, cols_live, row_cols, p, shift,
+                             hi_mask, group, take, o);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -12,6 +12,7 @@ from rgnir_torch.kernels.select import (
     byte_hist,
     masked_median,
     masked_median_rows,
+    masked_median_sharded,
     q24_onepass,
     q24_tail,
     radix_order_statistic,
@@ -34,6 +35,7 @@ __all__ = [
     "fused_analyze",
     "masked_median",
     "masked_median_rows",
+    "masked_median_sharded",
     "q24_onepass",
     "q24_tail",
     "radix_order_statistic",

@@ -7,7 +7,11 @@ gives the white-balanced frame, K index maps, per-kind sum, min, max
 and coverage count, the 50-bin histogram, the colormap renders and the
 round-0 byte histogram of the median select (whose top key byte is the
 render byte). Every kind is computed in full: a kind whose band pair
-swaps another's comes out as the exact negation anyway.
+swaps another's comes out as the exact negation anyway. ``n_valid`` (the
+TPU kernel's prefix mask, for a shard whose last rows are padding)
+leaves each frame's pixels from the ``n_valid``-th on out of every
+statistic and histogram; they still get wb and index values, and their
+renders are zero bytes, as the TPU kernel's are.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from rgnir_torch.color import get_lut
 from rgnir_torch.config import EPSILON, HIST_BINS, IndexKind
 from rgnir_torch.kernels._build import launch
+from rgnir_torch.kernels.hist import check_n_valid
 from rgnir_torch.ops.indices import band_indices
 from rgnir_torch.ops.stats import hist_edges, histogram_fixed_bins
 
@@ -31,7 +36,7 @@ MAX_KINDS = 8  # kMaxKinds in csrc/fused.cu
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _I32, _I32,
+_ARGTYPES = (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _P, _P, _P, _P, _I32, _I32,
              _P, _P, _P, _P, _P, _P, _P, _P, _P)
 
 
@@ -78,10 +83,23 @@ def _accumulator_start(b: int, nk: int, with_hist: bool,
     return torch.cat(parts)
 
 
+def check_bounds_nonneg(lo: torch.Tensor, bounds_nonneg: Optional[bool]) -> None:
+    """The precondition of an analytic correction for zero-byte padding
+    (the 2-D mosaic body): every ``lo >= 0``, so that a zero byte
+    white-balances to exactly 0 and its index is exactly +0.0 (the
+    counterpart of ``bounds_nonneg`` at ``rgnir_tpu/kernels/fused.py:1084``).
+    ``True`` is the caller's claim, which bounds taken from uint8
+    histograms satisfy; it is checked on the device without a host round
+    trip, and a false claim fails the stream. ``None`` and ``False`` claim
+    nothing."""
+    if bounds_nonneg:
+        torch._assert_async((lo >= 0).all())
+
+
 def fused_analyze_plain(
     img: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     kinds: Tuple[IndexKind, ...], with_renders: bool, with_hist: bool,
-    round0: Tuple[bool, ...],
+    round0: Tuple[bool, ...], n_valid: Optional[int] = None,
 ) -> FusedOut:
     """The same function as elementwise PyTorch ops and reductions."""
     x = img.to(torch.float32)                           # (B, H, W, 3)
@@ -101,28 +119,35 @@ def fused_analyze_plain(
         byte = torch.floor((q + 1.0) * 128.0).to(torch.int64).clamp(max=255)
         if with_renders:
             rgb.append(luts[k][byte].to(torch.uint8))
-        counts = torch.zeros(q.shape[0], 256, dtype=torch.int64, device=q.device)
-        if round0[k]:
-            flat = byte.reshape(q.shape[0], -1)
-            counts.scatter_add_(1, flat, torch.ones_like(flat))
-        r0.append(counts.to(torch.int32))
+        r0.append(byte.reshape(q.shape[0], -1) if round0[k] else None)
     idx_t = torch.stack(idx)                            # (K, B, H, W)
-    flat = idx_t.reshape(len(kinds), idx_t.shape[1], -1)
+    n_valid = check_n_valid(n_valid, img.shape[1] * img.shape[2])
+    rgb_t = torch.stack(rgb) if with_renders else None
+    if with_renders:
+        rgb_t.view(len(kinds), img.shape[0], -1, 3)[:, :, n_valid:] = 0
+    flat = idx_t.reshape(len(kinds), idx_t.shape[1], -1)[..., :n_valid]
+    counts = []
+    for byte in r0:
+        c = torch.zeros(idx_t.shape[1], 256, dtype=torch.int64, device=img.device)
+        if byte is not None:
+            c.scatter_add_(1, byte[:, :n_valid], torch.ones_like(byte[:, :n_valid]))
+        counts.append(c.to(torch.int32))
     thr = torch.tensor([k.coverage_threshold for k in kinds],
                        dtype=torch.float32, device=img.device)
+    inf = torch.full(flat.shape[:-1], float("inf"), device=img.device)
     return FusedOut(
         wb=wbf.to(torch.uint8),
         idx=idx_t,
-        rgb=torch.stack(rgb) if with_renders else None,
+        rgb=rgb_t,
         sum=flat.sum(dim=-1, dtype=torch.float64).T.contiguous(),
-        min=flat.amin(dim=-1).T.contiguous(),
-        max=flat.amax(dim=-1).T.contiguous(),
+        min=(flat.amin(dim=-1) if n_valid else inf).T.contiguous(),
+        max=(flat.amax(dim=-1) if n_valid else -inf).T.contiguous(),
         above=(flat > thr[:, None, None]).sum(dim=-1).to(torch.int32).T.contiguous(),
         hist50=(
-            histogram_fixed_bins(idx_t, HIST_BINS, -1.0, 1.0).transpose(0, 1).contiguous()
+            histogram_fixed_bins(flat[..., None], HIST_BINS, -1.0, 1.0).transpose(0, 1).contiguous()
             if with_hist else None
         ),
-        r0=torch.stack(r0, dim=1),
+        r0=torch.stack(counts, dim=1),
     )
 
 
@@ -134,10 +159,15 @@ def fused_analyze(
     with_renders: bool = True,
     with_hist: bool = True,
     round0: Optional[Sequence[bool]] = None,
+    n_valid: Optional[int] = None,
+    bounds_nonneg: Optional[bool] = None,
 ) -> FusedOut:
     """Fused pass over ``(B, H, W, 3)`` uint8 frames with ``(B, 3)``
     white-balance bounds. ``round0`` picks the kinds whose round-0
-    histogram is counted (all by default).
+    histogram is counted (all by default). ``n_valid``: only the first
+    ``n_valid`` pixels of each frame, in row-major order, count in the
+    statistics and histograms. ``bounds_nonneg``: see
+    :func:`check_bounds_nonneg`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel.
@@ -147,9 +177,10 @@ def fused_analyze(
     round0 = (True,) * nk if round0 is None else tuple(bool(r) for r in round0)
     if len(round0) != nk:
         raise ValueError(f"round0 has {len(round0)} entries for {nk} kinds")
+    check_bounds_nonneg(lo, bounds_nonneg)
     if img.device.type == "cpu":
         return fused_analyze_plain(img, lo, hi, kinds, with_renders,
-                                   with_hist, round0)
+                                   with_hist, round0, n_valid)
     if img.device.type != "cuda" or img.dtype != torch.uint8 or img.dim() != 4 \
             or img.shape[-1] != 3:
         raise ValueError(
@@ -162,6 +193,7 @@ def fused_analyze(
     img = img.contiguous()
     b, h, w, _ = img.shape
     hw = h * w
+    n_valid = check_n_valid(n_valid, hw)
     lo = lo.to(device=dev, dtype=torch.float32).contiguous()
     hi = hi.to(device=dev, dtype=torch.float32).contiguous()
     if lo.shape != (b, 3) or hi.shape != (b, 3):
@@ -194,7 +226,7 @@ def fused_analyze(
 
     launch("fused", "rgnir_fused", _ARGTYPES, (
         img.data_ptr(), lo.data_ptr(), hi.data_ptr(), luts.data_ptr(), edges.data_ptr(),
-        b, hw, nk, ia.ctypes.data, ib.ctypes.data, thr.ctypes.data,
+        b, hw, n_valid, nk, ia.ctypes.data, ib.ctypes.data, thr.ctypes.data,
         r0mask.ctypes.data, int(with_renders), int(with_hist),
         wb.data_ptr(), idx.data_ptr(), ptr(rgb), sums.data_ptr(),
         mn.data_ptr(), mx.data_ptr(), above.data_ptr(), ptr(hist50),

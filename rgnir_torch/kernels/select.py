@@ -13,8 +13,11 @@ Kernels, in place of the TPU kernels of ``rgnir_tpu/kernels/select.py``:
 
 ``take_prefix=(group, take)`` views the B input rows as groups of
 ``group`` consecutive rows and selects the first ``take`` of each; the
-kernels never read the skipped rows. The cdf picks between rounds are
-O(256) tensor ops on the device, so a select makes no host round trip.
+kernels never read the skipped rows. ``byte_hist`` also takes the TPU
+kernel's positional validity: a prefix (``n_valid``) or a rectangle
+(``live_rc``), for :func:`masked_median_sharded`, the median over a list
+of shards. The cdf picks between rounds are O(256) tensor ops on the
+device, so a select makes no host round trip.
 """
 
 from __future__ import annotations
@@ -27,9 +30,12 @@ import torch
 
 from rgnir_torch.kernels._build import launch
 from rgnir_torch.ops.select import (
+    Q24_MAX,
+    Q24_SCALE,
     SHIFTS,
     cdf_pick,
     f32_from_ordered_u32,
+    masked_min,
     ordered_u32_from_f32,
     q24_keys,
 )
@@ -94,15 +100,55 @@ def _check_round(shift: int, key_mode: str) -> None:
 
 # --- byte_hist -----------------------------------------------------------------
 
+LiveRC = Tuple[int, int]
+
+
+def _validity(n: int, n_valid: Optional[int], live_rc: Optional[LiveRC],
+              row_major_cols: Optional[int]) -> Tuple[int, int, int]:
+    """``(n_valid or rows_live, cols_live, row_cols)`` as the C entry takes
+    them: row_cols 0 for the prefix layout, the block width for the
+    rectangle."""
+    if live_rc is None:
+        if row_major_cols is not None:
+            raise ValueError("row_major_cols is the width of a live_rc rectangle")
+        nv = n if n_valid is None else int(n_valid)
+        if not 0 <= nv <= n:
+            raise ValueError(f"n_valid {nv} is outside [0, {n}]")
+        return nv, 0, 0
+    if n_valid is not None:
+        raise ValueError("pass n_valid (a prefix) or live_rc (a rectangle), not both")
+    bw = row_major_cols
+    if bw is None or bw < 1 or n % bw != 0:
+        raise ValueError(f"live_rc needs row_major_cols dividing the row's {n} elements, "
+                         f"got {bw}")
+    rows_live, cols_live = (int(v) for v in live_rc)
+    if not (0 <= rows_live <= n // bw and 0 <= cols_live <= bw):
+        raise ValueError(f"live_rc {live_rc} is outside the ({n // bw}, {bw}) block")
+    return rows_live, cols_live, bw
+
+
+def _valid_elements(rows: torch.Tensor, n_valid: Optional[int] = None,
+                    live_rc: Optional[LiveRC] = None,
+                    row_major_cols: Optional[int] = None) -> torch.Tensor:
+    """The valid elements of each ``(B, n)`` row, as ``(B, live)``."""
+    nv, cols_live, bw = _validity(rows.shape[1], n_valid, live_rc, row_major_cols)
+    if not bw:
+        return rows[:, :nv]
+    return rows.reshape(rows.shape[0], -1, bw)[:, :nv, :cols_live].reshape(rows.shape[0], -1)
+
+
 def byte_hist_plain(
     rows: torch.Tensor, prefix: torch.Tensor, shift: int, key_mode: str = "q24",
     take_prefix: Optional[Tuple[int, int]] = None,
+    n_valid: Optional[int] = None, live_rc: Optional[LiveRC] = None,
+    row_major_cols: Optional[int] = None,
 ) -> torch.Tensor:
-    """256-bin counts of key byte ``(key >> shift) & 255`` over the
+    """256-bin counts of key byte ``(key >> shift) & 255`` over the valid
     elements of each selected row whose key bits above that byte match
-    the row's prefix; the top round counts every element."""
+    the row's prefix; the top round counts every valid element."""
     _check_round(shift, key_mode)
-    keys = _radix_keys(_selected(rows, take_prefix), key_mode)
+    vals = _valid_elements(_selected(rows, take_prefix), n_valid, live_rc, row_major_cols)
+    keys = _radix_keys(vals, key_mode)
     if shift == SHIFTS[key_mode][0]:
         active = torch.ones_like(keys)
     else:
@@ -117,24 +163,33 @@ def byte_hist_plain(
 def byte_hist(
     rows: torch.Tensor, prefix: torch.Tensor, shift: int, key_mode: str = "q24",
     take_prefix: Optional[Tuple[int, int]] = None,
+    n_valid: Optional[int] = None, live_rc: Optional[LiveRC] = None,
+    row_major_cols: Optional[int] = None,
 ) -> torch.Tensor:
     """One radix round over ``(B, n)`` float32 rows: ``(Bsel, 256)``
     int32 counts. ``prefix`` holds each selected row's key so far, as
     uint32 values in an int64 tensor or as their bit patterns in an
-    int32 one. ``key_mode`` is ``"q24"`` or ``"f32"``. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel."""
+    int32 one. ``key_mode`` is ``"q24"`` or ``"f32"``. Validity (the
+    sharded median's shards): ``n_valid`` counts only the first
+    ``n_valid`` elements of each row; ``live_rc=(rows_live, cols_live)``
+    views each row as a row-major ``(n / row_major_cols, row_major_cols)``
+    block and counts only its top-left ``rows_live x cols_live``
+    rectangle. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel."""
     if rows.device.type == "cpu":
-        return byte_hist_plain(rows, prefix, shift, key_mode, take_prefix)
+        return byte_hist_plain(rows, prefix, shift, key_mode, take_prefix,
+                               n_valid, live_rc, row_major_cols)
     _check_round(shift, key_mode)
     b_sel, group, take = _row_map(rows.shape[0], take_prefix)
     _check_rows(rows, b_sel, prefix)
+    nv, cols_live, bw = _validity(rows.shape[1], n_valid, live_rc, row_major_cols)
     rows = rows.contiguous()
     prefix = prefix.to(torch.int32).contiguous()  # int64 -> int32 keeps the low 32 bits
     out = torch.zeros(b_sel, 256, dtype=torch.int32, device=rows.device)
     launch("select", "rgnir_byte_hist",
-           (_P, _I64, _I64, _P, _INT, _INT, _INT, _INT, _P),
-           (rows.data_ptr(), b_sel, rows.shape[1], prefix.data_ptr(), shift,
-            _KEY_MODE[key_mode], group, take, out.data_ptr()), rows.device)
+           (_P, _I64, _I64, _I64, _I64, _I64, _P, _INT, _INT, _INT, _INT, _P),
+           (rows.data_ptr(), b_sel, rows.shape[1], nv, cols_live, bw, prefix.data_ptr(),
+            shift, _KEY_MODE[key_mode], group, take, out.data_ptr()), rows.device)
     byte_hist.launches += 1
     return out
 
@@ -417,3 +472,91 @@ def radix_order_statistic(
     rank_b = torch.as_tensor(rank, dtype=torch.int64, device=rows.device)
     kp, _ = _select(rows, rank_b.broadcast_to(batch).reshape(-1), "f32")
     return f32_from_ordered_u32(kp).reshape(batch)
+
+
+# --- the sharded median ----------------------------------------------------------
+
+def masked_median_sharded(
+    shards: Sequence[torch.Tensor],
+    n_valid_global: int,
+    n_live: Optional[Sequence[int]],
+    live_rc: Optional[Sequence[LiveRC]] = None,
+    quantized: bool = False,
+    round0_hist: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Exact median (numpy even-n semantics) of the valid elements of a
+    list of shards taken together: a 0-d float32 tensor on the first
+    shard's device. The shard list takes the place of the JAX package's
+    mesh axis: each radix round launches ``byte_hist`` on every shard in
+    its validity mode and sums the 256 counts (``psum``) before one cdf
+    pick; the prefix and the ranks stay on the device.
+
+    Validity is positional, one entry per shard: ``n_live`` (the first
+    ``n_live[i]`` elements of shard i, flattened row-major, are valid:
+    full-width row blocks), or ``live_rc`` (shard i is a 2-D ``(bh,
+    bw)`` block whose top-left ``rows_live x cols_live`` rectangle is
+    valid: row and column padding; pass ``n_live=None``).
+
+    ``quantized``: the q24 key, 3 rounds (2 with ``round0_hist``), exact
+    for index maps of uint8 bands; the value of the winning key and the
+    even-n successor are masked mins over the valid elements and
+    ``pmin``, in PyTorch ops as the JAX package keeps them in XLA. Else
+    the f32 key, 4 rounds, exact for any non-NaN data. ``round0_hist``:
+    the global (already summed) ``(256,)`` counts of the top key byte,
+    which save round 0's pass. Counterpart:
+    ``rgnir_tpu/kernels/select.py:masked_median_pallas_sharded``.
+    """
+    from rgnir_torch.parallel.mesh import psum
+
+    if (n_live is None) == (live_rc is None):
+        raise ValueError("pass n_live (prefix layout) or live_rc (rectangles), not both")
+    shards = list(shards)
+    validity = []
+    for i, v in enumerate(shards):
+        if live_rc is not None:
+            if v.dim() != 2:
+                raise ValueError("live_rc requires (bh, bw) 2-D shards")
+            validity.append(dict(live_rc=live_rc[i], row_major_cols=v.shape[1]))
+        else:
+            validity.append(dict(n_valid=n_live[i]))
+    rows = [v.reshape(1, -1).to(torch.float32) for v in shards]
+    dev = rows[0].device
+    key_mode = "q24" if quantized else "f32"
+    prefix = torch.zeros(1, dtype=torch.int64, device=dev)
+    rank = torch.full((1,), (n_valid_global - 1) // 2, dtype=torch.int64, device=dev)
+    eq_minus_rank = None
+    shifts = SHIFTS[key_mode]
+    for shift in shifts:
+        if shift == shifts[0] and round0_hist is not None:
+            hist = round0_hist.reshape(1, 256).to(dev)
+        else:
+            hist = psum([byte_hist(r, prefix.to(r.device), shift, key_mode, **val)
+                         for r, val in zip(rows, validity)])
+        sel, below, in_bin = cdf_pick(hist, rank)
+        rank = rank - below
+        prefix = prefix | (sel << shift)
+        eq_minus_rank = in_bin - rank
+    valid = [_valid_elements(r, **val) for r, val in zip(rows, validity)]  # (1, live) each
+    inf = float("inf")
+    if quantized:
+        # key >= k  <=>  fl(v + 1) >= k * 2^-23 (the scale by 2^23 is exact,
+        # the conversion truncates, and k * 2^-23 is a float32 for k <=
+        # 2^24), so both mins compare v + 1 with a threshold instead of
+        # forming the keys. The least value of key >= kp is the least of
+        # the winning key (its bin holds the rank); no key exceeds the top.
+        lo_t = prefix[0].to(torch.float32) * (1.0 / Q24_SCALE)
+        hi_t = torch.where(prefix[0] == Q24_MAX, inf, (prefix[0] + 1).to(torch.float32)
+                           * (1.0 / Q24_SCALE))
+        u = [torch.add(v, 1.0) for v in valid]
+        lo = masked_min(valid, [w >= lo_t.to(w.device) for w in u], inf)[0]
+        if n_valid_global % 2 == 1:
+            return lo
+        nxt = masked_min(valid, [w >= hi_t.to(w.device) for w in u], inf)[0]
+    else:
+        lo = f32_from_ordered_u32(prefix)[0]
+        if n_valid_global % 2 == 1:
+            return lo
+        # the successor in float order, which is key order on non-NaN data
+        nxt = masked_min(valid, [v > lo.to(v.device) for v in valid], inf)[0]
+    hi = torch.where(eq_minus_rank[0] >= 2, lo, nxt)
+    return (lo + hi) * 0.5

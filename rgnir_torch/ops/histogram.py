@@ -11,7 +11,8 @@ runs on the tensor's device, in float32, with numpy's two-sided
 
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -19,14 +20,23 @@ import torch
 NUM_LEVELS = 256
 
 
-def planar_histograms(img_pl: torch.Tensor) -> torch.Tensor:
+def planar_histograms(
+    img_pl: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """Per-channel 256-bin counts of a planar ``(..., C, H, W)`` uint8
-    image: ``(..., C, 256)`` int32."""
+    image: ``(..., C, 256)`` int32. ``mask``, ``(..., H, W)`` bool,
+    counts only the pixels where it is true (a shard's padding)."""
     lead = img_pl.shape[:-2]
-    v = img_pl.reshape(-1, img_pl.shape[-2] * img_pl.shape[-1]).long()
+    hw = img_pl.shape[-2] * img_pl.shape[-1]
+    v = img_pl.reshape(math.prod(lead), hw).long()
+    if mask is None:
+        weight = torch.ones_like(v)
+    else:
+        weight = torch.broadcast_to(mask[..., None, :, :], img_pl.shape)
+        weight = weight.reshape(v.shape).to(torch.int64)
     out = torch.zeros(v.shape[0], NUM_LEVELS, dtype=torch.int64,
                       device=img_pl.device)
-    out.scatter_add_(1, v, torch.ones_like(v))
+    out.scatter_add_(1, v, weight)
     return out.to(torch.int32).reshape(lead + (NUM_LEVELS,))
 
 

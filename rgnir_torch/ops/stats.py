@@ -5,6 +5,7 @@
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -36,17 +37,21 @@ def hist_edges(bins: int, lo: float, hi: float) -> np.ndarray:
 
 
 def histogram_fixed_bins(
-    values: torch.Tensor, bins: int, lo: float, hi: float
+    values: torch.Tensor, bins: int, lo: float, hi: float,
+    mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``np.histogram(v, bins, range=(lo, hi))`` counts over the last two
     axes of float32 ``values``: ``(..., bins)`` int32, last bin
-    right-closed, values out of range dropped."""
+    right-closed, values out of range dropped, and with ``mask`` (bool,
+    shaped like ``values``) only the values where it is true counted."""
     edges = torch.as_tensor(hist_edges(bins, lo, hi), device=values.device)
     lead = values.shape[:-2]
-    v = values.reshape(-1, values.shape[-2] * values.shape[-1])
+    v = values.reshape(math.prod(lead), values.shape[-2] * values.shape[-1])
     v = v.to(torch.float32).contiguous()
     b = torch.searchsorted(edges[1:bins].contiguous(), v, right=True)
     in_range = (v >= edges[0]) & (v <= edges[-1])
+    if mask is not None:
+        in_range = in_range & mask.reshape(v.shape)
     out = torch.zeros(v.shape[0], bins, dtype=torch.int64, device=v.device)
     out.scatter_add_(1, b, in_range.to(torch.int64))
     return out.to(torch.int32).reshape(lead + (bins,))

@@ -1,0 +1,331 @@
+"""Sharded whole-mosaic analysis: spatial parallelism over a device mesh.
+
+One large ``(H, W, 3)`` uint8 mosaic is cut into row blocks (a 1-D mesh)
+or row-and-column blocks (a 2-D mesh), one per mesh device; padding makes
+the blocks equal. Every reduction is gathered exactly, so the global
+statistics do not depend on the mesh:
+
+- white-balance percentiles: per-channel 256-bin histograms, ``psum``;
+- mean, variance, coverage and the 50-bin histogram: ``psum`` of partial
+  sums and counts;
+- min and max: ``pmin`` and ``pmax``;
+- the median: an exact radix select whose rounds sum their 256 counts
+  over the shards.
+
+The per-pixel work (white balance, index maps, renders) stays on each
+shard. The body runs stage by stage over the shards, each collective
+between two stages (``rgnir_torch/parallel/mesh.py``). Counterpart:
+``rgnir_tpu/parallel/mosaic.py``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from rgnir_torch.config import ALL_INDICES, IndexConfig, IndexKind, WBConfig
+from rgnir_torch.kernels.fused import fused_analyze
+from rgnir_torch.kernels.hist import channel_histograms
+from rgnir_torch.kernels.select import masked_median_sharded
+from rgnir_torch.ops.colormap import render_colormap
+from rgnir_torch.ops.histogram import planar_histograms
+from rgnir_torch.ops.indices import band_indices, index_from_bands
+from rgnir_torch.ops.select import masked_median
+from rgnir_torch.ops.stats import IndexStats, histogram_fixed_bins
+from rgnir_torch.ops.wb import apply_white_balance_planar, wb_bounds_from_histogram
+from rgnir_torch.parallel.mesh import Mesh, local_mesh, pmax, pmin, psum
+
+
+@dataclasses.dataclass
+class MosaicResult:
+    """Pixel outputs keep the padding (slice ``[:H, :W]`` if needed); the
+    statistics are global 0-d tensors on the mesh's first device."""
+
+    wb: torch.Tensor                  # (H_pad, W_pad, 3) uint8
+    indices: Dict[str, torch.Tensor]  # kind -> (H_pad, W_pad) f32
+    renders: Dict[str, torch.Tensor]  # kind -> (H_pad, W_pad, 3) uint8 (may be empty)
+    stats: Dict[str, IndexStats]      # kind -> global scalar stats
+
+
+MosaicStats = Dict[str, IndexStats]
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass
+class _Layout:
+    """The cut of a mosaic into ``dr x dc`` blocks of ``(bh, bw)``, in
+    row-major order; ``h x w`` is the valid top-left part."""
+
+    dr: int
+    dc: int
+    bh: int
+    bw: int
+    h: int
+    w: int
+    devices: List[torch.device]
+
+    @property
+    def n_valid(self) -> int:
+        return self.h * self.w
+
+    @property
+    def pad_total(self) -> int:
+        return self.dr * self.bh * self.dc * self.bw - self.n_valid
+
+    def live(self) -> List[Tuple[int, int]]:
+        """Each block's valid rectangle, ``(rows_live, cols_live)``."""
+        return [(min(max(self.h - r * self.bh, 0), self.bh),
+                 min(max(self.w - c * self.bw, 0), self.bw))
+                for r in range(self.dr) for c in range(self.dc)]
+
+    def tiles(self, mosaic: torch.Tensor) -> List[torch.Tensor]:
+        """Each block, contiguous on its device; what lies past the
+        mosaic is zeros."""
+        out = []
+        for i, dev in enumerate(self.devices):
+            r, c = divmod(i, self.dc)
+            src = mosaic[r * self.bh:(r + 1) * self.bh, c * self.bw:(c + 1) * self.bw]
+            if src.shape[:2] == (self.bh, self.bw):
+                out.append(src.to(dev).contiguous())
+                continue
+            tile = torch.zeros((self.bh, self.bw, 3), dtype=torch.uint8, device=dev)
+            tile[:src.shape[0], :src.shape[1]] = src.to(dev)
+            out.append(tile)
+        return out
+
+    def assemble(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global padded tensor of per-block outputs, on the first
+        device."""
+        dev = self.devices[0]
+        if len(parts) == 1:
+            return parts[0]
+        rows = [torch.cat([p.to(dev) for p in parts[r * self.dc:(r + 1) * self.dc]], dim=1)
+                if self.dc > 1 else parts[r].to(dev) for r in range(self.dr)]
+        return torch.cat(rows, dim=0)
+
+
+def _as_mosaic(mosaic) -> torch.Tensor:
+    if isinstance(mosaic, np.ndarray):
+        mosaic = torch.from_numpy(np.ascontiguousarray(mosaic))
+    if mosaic.dtype != torch.uint8 or mosaic.dim() != 3 or mosaic.shape[-1] != 3:
+        raise ValueError(f"expected an (H, W, 3) uint8 mosaic, got "
+                         f"{tuple(mosaic.shape)} {mosaic.dtype}")
+    return mosaic
+
+
+def analyze_mosaic(
+    mosaic,
+    kinds: Sequence[Union[IndexKind, str]] = ALL_INDICES,
+    mesh: Optional[Mesh] = None,
+    wb_cfg: WBConfig = WBConfig(),
+    idx_cfg: IndexConfig = IndexConfig(),
+    with_renders: bool = False,
+    impl: str = "jnp",
+    valid_rows: Optional[int] = None,
+) -> MosaicResult:
+    """Analyze one large ``(H, W, 3)`` uint8 mosaic (a tensor or a numpy
+    array) sharded over a mesh.
+
+    Rows (and, on a 2-D mesh such as axes ``("dr", "dc")``, columns) are
+    padded to a multiple of the mesh and cut into blocks, one per mesh
+    device; every global statistic is exact, the padding masked out of
+    every reduction. ``mesh`` defaults to every visible CUDA device
+    (``local_mesh()``); a mesh over an explicit device list, such as
+    ``make_mesh((4,), ("d",), devices=["cpu"] * 4)``, runs anywhere.
+
+    ``valid_rows``: the true height when the caller pre-padded the rows
+    with zeros; the pad rows are masked like the internal padding.
+
+    ``impl``: ``"jnp"`` (plain PyTorch ops, the name kept from the JAX
+    package) or ``"kernel"`` (the hist, fused and byte_hist kernels in
+    their validity modes on each shard; on CPU tensors their plain
+    versions). The 1-D kernel body masks the padding positionally; the
+    2-D one runs the shards unmasked and subtracts the padding's exactly
+    known contribution (zero bytes white-balance to 0 and index to +0.0
+    because every lower bound is >= 0), with the rectangular-validity
+    select for the median.
+    """
+    if impl not in ("jnp", "kernel"):
+        raise ValueError(f"impl must be 'jnp' or 'kernel', got {impl!r}")
+    if mesh is None:
+        mesh = local_mesh()
+    kinds = tuple(IndexKind.parse(k) for k in kinds)
+    mosaic = _as_mosaic(mosaic)
+    h_in, w = int(mosaic.shape[0]), int(mosaic.shape[1])
+    h = h_in if valid_rows is None else int(valid_rows)
+    if not 0 < h <= h_in:
+        raise ValueError(f"valid_rows {valid_rows} is outside (0, {h_in}]")
+    dr, dc = (mesh.devices.shape + (1,))[:2]
+    layout = _Layout(dr=dr, dc=dc, bh=_ceil_to(h_in, dr) // dr, bw=_ceil_to(w, dc) // dc,
+                     h=h, w=w, devices=mesh.flat())
+    tiles = layout.tiles(mosaic)
+    if impl == "jnp":
+        return _analyze_jnp(tiles, layout, kinds, wb_cfg, idx_cfg, with_renders)
+    if len(mesh.axis_names) == 1:
+        return _analyze_kernel_1d(tiles, layout, kinds, wb_cfg, with_renders)
+    return _analyze_kernel_2d(tiles, layout, kinds, wb_cfg, with_renders)
+
+
+def _scalar_stats(mean, median, var, mn, mx, above, n_valid, hist) -> IndexStats:
+    return IndexStats(
+        mean=mean.to(torch.float32),
+        median=median,
+        std=torch.sqrt(var.to(torch.float32)),
+        min=mn,
+        max=mx,
+        coverage_pct=above.to(torch.float32) / n_valid * 100.0,
+        histogram=hist.to(torch.int32),
+        n=torch.tensor(n_valid, dtype=torch.int32, device=mean.device),
+    )
+
+
+def _analyze_jnp(tiles, layout: _Layout, kinds, wb_cfg, idx_cfg, with_renders) -> MosaicResult:
+    """The plain body, the JAX package's two jnp bodies in one: a 1-D
+    mesh is one column of blocks whose valid columns are all of them."""
+    n_valid = layout.n_valid
+    masks = []
+    for t, (rl, cl) in zip(tiles, layout.live()):
+        rows = torch.arange(layout.bh, device=t.device)[:, None] < rl
+        cols = torch.arange(layout.bw, device=t.device)[None, :] < cl
+        masks.append(rows & cols)
+    pls = [t.movedim(-1, -3) for t in tiles]
+    hist = psum([planar_histograms(pl, mask=m) for pl, m in zip(pls, masks)])
+    lo, hi = wb_bounds_from_histogram(hist, n=n_valid, cfg=wb_cfg)
+    wb_pls = [apply_white_balance_planar(pl, lo.to(pl.device), hi.to(pl.device), cfg=wb_cfg)
+              for pl in pls]
+
+    inf = float("inf")
+    mfs = [m.to(torch.float32) for m in masks]
+    indices, renders, stats = {}, {}, {}
+    for kind in kinds:
+        ia, ib = band_indices(kind)
+        idxs = [index_from_bands(p[ia], p[ib], cfg=idx_cfg) for p in wb_pls]
+        mean = psum([(x * mf).sum() for x, mf in zip(idxs, mfs)]) / n_valid
+        s2 = psum([(torch.square(x - mean.to(x.device)) * mf).sum()
+                   for x, mf in zip(idxs, mfs)])
+        thr = kind.coverage_threshold
+        stats[kind.value] = _scalar_stats(
+            mean=mean,
+            median=masked_median(idxs, n_valid, mask=masks, reduce_ndim=2),
+            var=s2 / n_valid,
+            mn=pmin([torch.where(m, x, inf).amin() for x, m in zip(idxs, masks)]),
+            mx=pmax([torch.where(m, x, -inf).amax() for x, m in zip(idxs, masks)]),
+            above=psum([((x > thr) & m).sum() for x, m in zip(idxs, masks)]),
+            n_valid=n_valid,
+            hist=psum([histogram_fixed_bins(x, idx_cfg.hist_bins, idx_cfg.clip_lo,
+                                            idx_cfg.clip_hi, mask=m)
+                       for x, m in zip(idxs, masks)]),
+        )
+        indices[kind.value] = layout.assemble(idxs)
+        if with_renders:
+            renders[kind.value] = layout.assemble([render_colormap(x, kind) for x in idxs])
+    wb = layout.assemble([p.movedim(-3, -1) for p in wb_pls])
+    return MosaicResult(wb=wb.contiguous(), indices=indices, renders=renders, stats=stats)
+
+
+def _fused_shards(tiles, lo, hi, kinds, with_renders, n_live=None):
+    """The fused kernel on every shard, one frame each."""
+    return [fused_analyze(t[None], lo[None].to(t.device), hi[None].to(t.device), kinds,
+                          with_renders=with_renders, with_hist=True,
+                          n_valid=None if n_live is None else n_live[i],
+                          bounds_nonneg=True)
+            for i, t in enumerate(tiles)]
+
+
+def _pixel_outputs(outs, layout: _Layout, kinds, with_renders):
+    indices = {kind.value: layout.assemble([o.idx[k, 0] for o in outs])
+               for k, kind in enumerate(kinds)}
+    renders = ({kind.value: layout.assemble([o.rgb[k, 0] for o in outs])
+                for k, kind in enumerate(kinds)} if with_renders else {})
+    return layout.assemble([o.wb[0] for o in outs]), indices, renders
+
+
+def _gathered(outs) -> dict:
+    """The fused kernel's partials over the shards, every kind at once:
+    sums, coverage counts, 50-bin and round-0 histograms summed, min and
+    max reduced. Round 0's counts are the q24 select's top round."""
+    return dict(sum=psum([o.sum[0] for o in outs]), above=psum([o.above[0] for o in outs]),
+                min=pmin([o.min[0] for o in outs]), max=pmax([o.max[0] for o in outs]),
+                hist50=psum([o.hist50[0] for o in outs]), r0=psum([o.r0[0] for o in outs]))
+
+
+def _sumsq(views, means) -> torch.Tensor:
+    """Per kind, the sum over the shards of ``(v - mean)^2`` about the
+    global means, from one pass over each shard's ``(K, ...)`` valid
+    values: their own variances and means (``torch.var_mean``, Welford's)
+    combined exactly as ``n_i * (var_i + (mean_i - mean)^2)``, in float64."""
+    parts = []
+    for v in views:
+        n = v[0].numel()
+        if n:
+            var_i, mean_i = torch.var_mean(v, dim=tuple(range(1, v.dim())), correction=0)
+            dev = mean_i.double() - means.to(v.device).double()
+            parts.append(n * (var_i.double() + dev * dev))
+    return psum(parts)
+
+
+def _kernel_stats(g, views, kinds, n_valid, medians, mn, mx) -> MosaicStats:
+    means = (g["sum"] / n_valid).to(torch.float32)
+    var = _sumsq(views, means) / n_valid
+    return {kind.value: _scalar_stats(mean=means[k], median=medians[k], var=var[k], mn=mn[k],
+                                      mx=mx[k], above=g["above"][k], n_valid=n_valid,
+                                      hist=g["hist50"][k])
+            for k, kind in enumerate(kinds)}
+
+
+def _analyze_kernel_1d(tiles, layout: _Layout, kinds, wb_cfg, with_renders) -> MosaicResult:
+    """Row blocks through the kernels, the padding masked positionally:
+    a shard's valid pixels are its first ``rows_live * W`` (hist's and
+    fused's ``n_valid``, byte_hist's prefix)."""
+    n_valid = layout.n_valid
+    n_live = [rl * layout.w for rl, _ in layout.live()]
+    hist = psum([channel_histograms(t, n_valid=n) for t, n in zip(tiles, n_live)])
+    lo, hi = wb_bounds_from_histogram(hist, n=n_valid, cfg=wb_cfg)
+    outs = _fused_shards(tiles, lo, hi, kinds, with_renders, n_live)
+    g = _gathered(outs)
+    medians = [masked_median_sharded([o.idx[k, 0] for o in outs], n_valid, n_live,
+                                     quantized=True, round0_hist=g["r0"][k])
+               for k in range(len(kinds))]
+    views = [o.idx[:, 0].reshape(len(kinds), -1)[:, :n] for o, n in zip(outs, n_live)]
+    stats = _kernel_stats(g, views, kinds, n_valid, medians, g["min"], g["max"])
+    wb, indices, renders = _pixel_outputs(outs, layout, kinds, with_renders)
+    return MosaicResult(wb=wb, indices=indices, renders=renders, stats=stats)
+
+
+def _analyze_kernel_2d(tiles, layout: _Layout, kinds, wb_cfg, with_renders) -> MosaicResult:
+    """Row-and-column blocks through the kernels unmasked: the padding is
+    zero bytes, which white-balance to 0 (every lower bound is >= 0) and
+    index to +0.0, so its contribution is known exactly and subtracted:
+    ``pad_total`` counts in bin 0 of each channel histogram, in byte 128
+    of the round-0 counts and in bin 25 of the 50-bin histogram, and adds
+    nothing to the sums (nor to the coverage count while 0 > threshold is
+    false). Min, max and the variance are taken over each block's valid
+    rectangle, and the median by the rectangular-validity select."""
+    n_valid, pad_total = layout.n_valid, layout.pad_total
+    live = layout.live()
+    hist = psum([channel_histograms(t) for t in tiles])
+    hist[:, 0] -= pad_total
+    lo, hi = wb_bounds_from_histogram(hist, n=n_valid, cfg=wb_cfg)
+    outs = _fused_shards(tiles, lo, hi, kinds, with_renders)
+    g = _gathered(outs)
+    g["r0"][:, 128] -= pad_total
+    g["hist50"][:, 25] -= pad_total
+    for k, kind in enumerate(kinds):
+        if 0.0 > kind.coverage_threshold:
+            g["above"][k] -= pad_total
+    medians = [masked_median_sharded([o.idx[k, 0] for o in outs], n_valid, None, live_rc=live,
+                                     quantized=True, round0_hist=g["r0"][k])
+               for k in range(len(kinds))]
+    views = [o.idx[:, 0, :rl, :cl] for o, (rl, cl) in zip(outs, live)]
+    inf = torch.full((len(kinds),), float("inf"), device=layout.devices[0])
+    mn = pmin([v.amin(dim=(1, 2)) if v[0].numel() else inf.to(v.device) for v in views])
+    mx = pmax([v.amax(dim=(1, 2)) if v[0].numel() else -inf.to(v.device) for v in views])
+    stats = _kernel_stats(g, views, kinds, n_valid, medians, mn, mx)
+    wb, indices, renders = _pixel_outputs(outs, layout, kinds, with_renders)
+    return MosaicResult(wb=wb, indices=indices, renders=renders, stats=stats)

@@ -7,10 +7,10 @@ Run it on a new card, after an upgrade of the CUDA stack, or after any
 kernel edit. It builds the kernels (at first use), prints one JSON line
 per check and a final ``{"result": "PASS" | "FAIL", "failures": [...]}``,
 and exits 1 on any failure. It runs on CUDA; ``main(device="cpu")`` runs
-the same checks through the plain versions. Counterpart: sections 1-3 of
+the same checks through the plain versions. Counterpart: sections 1-4 of
 ``rgnir_tpu/testing/selftest.py``; its render-mode checks have no
-counterpart (the port has one render path), and its sections 4-5 (the
-sharded mosaic and change detection) come with the multi-device port.
+counterpart (the port has one render path), and its section 5 (sharded
+change detection) waits for ``parallel/change.py``.
 """
 
 from __future__ import annotations
@@ -129,6 +129,31 @@ def main(device: Optional[Union[str, torch.device]] = None) -> int:
         means=on_dev(v1.mean(axis=-1, dtype=np.float64).astype(np.float32)))
     check("median_q24_onepass_bigcounts",
           np.array_equal(m1.cpu().numpy(), np.median(v1, axis=-1).astype(np.float32)))
+
+    # 4. the sharded mosaic's kernel bodies: a one-device mesh (ragged
+    # rows exercise n_valid; the 2-D body the rectangular select), and
+    # four shards on the one device, whose last block is padding
+    from rgnir_torch.parallel import analyze_mosaic, make_mesh
+
+    mosaic = on_dev(rng.integers(0, 256, (1027, 1022, 3), dtype=np.uint8))
+    mesh1 = make_mesh((1,), ("d",), devices=[dev])
+    mk = analyze_mosaic(mosaic, kinds=("NDVI",), mesh=mesh1, impl="kernel")
+    mj = analyze_mosaic(mosaic, kinds=("NDVI",), mesh=mesh1, impl="jnp")
+    check("mosaic_1d_kernel_vs_jnp",
+          same(mk.stats["NDVI"].median, mj.stats["NDVI"].median)
+          and same(mk.stats["NDVI"].histogram, mj.stats["NDVI"].histogram))
+    m2k = analyze_mosaic(mosaic, kinds=("NDVI",), mesh=make_mesh((1, 1), ("dr", "dc"),
+                                                                  devices=[dev]),
+                         impl="kernel")
+    check("mosaic_2d_kernel_vs_1d", same(m2k.stats["NDVI"].median, mk.stats["NDVI"].median))
+    for name, shape, axes in (("mosaic_4shard_1d_vs_one_shard", (4,), ("d",)),
+                              ("mosaic_2x2_vs_one_shard", (2, 2), ("dr", "dc"))):
+        m4 = analyze_mosaic(mosaic, kinds=("NDVI",), mesh=make_mesh(shape, axes, devices=[dev] * 4),
+                            impl="kernel")
+        s4, s1 = m4.stats["NDVI"], mk.stats["NDVI"]
+        check(name, same(s4.median, s1.median) and same(s4.histogram, s1.histogram)
+              and same(s4.min, s1.min) and same(s4.max, s1.max)
+              and near(s4.mean, s1.mean, 1e-6) and near(s4.std, s1.std, 1e-6))
 
     print(json.dumps({"result": "PASS" if not failures else "FAIL",
                       "failures": failures}), flush=True)

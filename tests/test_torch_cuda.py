@@ -199,3 +199,65 @@ def test_cuda_onepass_path_matches_default_path(cuda):
     for k in KINDS:
         assert torch.equal(got.stats[k].median, want.stats[k].median), k
         assert float((got.stats[k].std ** 2 - want.stats[k].std ** 2).abs().max()) <= VAR_ATOL
+
+
+# --- the validity modes and the sharded mosaic ---------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_valid", [0, 1, 97 * 333 // 2 + 1, 97 * 333 - 1])
+def test_cuda_hist_fused_n_valid_match_plain(cuda, n_valid):
+    """The prefix ends mid-row and mid-word; the offset view puts every
+    frame at another alignment."""
+    img = torch.from_numpy(_frames(17, (4, 97, 333))).to(cuda)[1:]
+    assert torch.equal(tk.channel_histograms(img, n_valid=n_valid),
+                       thist.histograms_plain(img, n_valid))
+    lo, hi = wb_bounds_from_histogram(tk.channel_histograms(img), n=97 * 333)
+    kinds = tuple(IndexKind.parse(k) for k in KINDS)
+    got = tk.fused_analyze(img, lo, hi, kinds, n_valid=n_valid, bounds_nonneg=True)
+    want = tfused.fused_analyze_plain(img, lo, hi, kinds, True, True, (True,) * 3, n_valid)
+    for name in ("wb", "rgb", "min", "max", "above", "hist50", "r0"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert float((got.idx - want.idx).abs().max()) <= IDX_ATOL
+    assert float((got.sum - want.sum).abs().max()) / max(n_valid, 1) <= MEAN_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_mode,shift", [("q24", 16), ("q24", 8), ("f32", 24), ("f32", 0)])
+@pytest.mark.parametrize("validity", [dict(n_valid=0), dict(n_valid=12345),
+                                      dict(live_rc=(97, 300)), dict(live_rc=(0, 333)),
+                                      dict(live_rc=(50, 1))], ids=str)
+def test_cuda_byte_hist_validity_matches_plain(cuda, key_mode, shift, validity):
+    rng = np.random.default_rng(18)
+    a = rng.integers(0, 256, (3, 97 * 333)).astype(np.float32)
+    b = rng.integers(0, 256, (3, 97 * 333)).astype(np.float32)
+    rows = torch.from_numpy(np.clip((a - b) / (a + b + np.float32(1e-10)), -1, 1)).to(cuda)
+    keys = (q24_keys if key_mode == "q24" else ordered_u32_from_f32)(rows)
+    prefix = keys[:, 11]
+    kw = dict(validity, row_major_cols=333) if "live_rc" in validity else validity
+    assert torch.equal(tk.byte_hist(rows, prefix, shift, key_mode, **kw),
+                       tselect.byte_hist_plain(rows, prefix, shift, key_mode, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axes", [((4,), ("d",)), ((2, 2), ("dr", "dc"))])
+def test_cuda_mosaic_kernel_matches_jnp(cuda, shape, axes):
+    """Four shards of the one card, with row (and column) padding."""
+    from rgnir_torch.parallel import analyze_mosaic, make_mesh
+
+    mosaic = torch.from_numpy(_frames(19, (1, 203, 171))[0]).to(cuda)
+    mesh = make_mesh(shape, axes, devices=[cuda] * 4)
+    before = {k: w.launches for k, w in tk.WRAPPERS.items()}
+    got = analyze_mosaic(mosaic, kinds=KINDS, mesh=mesh, with_renders=True, impl="kernel")
+    launched = {k for k, w in tk.WRAPPERS.items() if w.launches > before[k]}
+    assert launched == {"hist", "fused", "byte_hist"}
+    want = analyze_mosaic(mosaic, kinds=KINDS, mesh=mesh, with_renders=True, impl="jnp")
+    one = analyze_image_auto(mosaic, kinds=KINDS)
+    assert torch.equal(got.wb[:203, :171], want.wb[:203, :171])
+    for k in KINDS:
+        assert torch.equal(got.renders[k][:203, :171], want.renders[k][:203, :171])
+        for ref in (want, one):
+            g, w = got.stats[k], ref.stats[k]
+            for field in ("min", "max", "median", "coverage_pct", "histogram", "n"):
+                assert torch.equal(getattr(g, field), getattr(w, field)), (k, field)
+            assert float((g.mean - w.mean).abs()) <= MEAN_ATOL
+            assert float((g.std ** 2 - w.std ** 2).abs()) <= VAR_ATOL

@@ -288,13 +288,15 @@ def test_to_analyze_index_dict():
 # --- the package stands alone --------------------------------------------
 
 def test_port_imports_no_jax():
-    """Every rgnir_torch module imports without JAX or rgnir_tpu."""
+    """Every rgnir_torch module imports without JAX, rgnir_tpu,
+    matplotlib or Pillow (the card's machine has none of them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rgnir_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(rgnir_torch.__path__, 'rgnir_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'rgnir_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'rgnir_tpu', 'matplotlib', 'PIL')]\n"
         "assert not bad, bad\n"
         "assert len(names) >= 16, names\n"
         "print(len(names))\n"

@@ -265,4 +265,4 @@ def test_selftest_passes_on_cpu(capsys):
     assert selftest.main(device="cpu") == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-1] == '{"result": "PASS", "failures": []}'
-    assert sum('"check"' in line for line in lines) == 14
+    assert sum('"check"' in line for line in lines) == 18  # sections 1-4

@@ -196,24 +196,24 @@ FUSED_NO_IDX_STORES = [(
 FUSED_LIBRARY_DIVISION = [(
     "        const float v = div_in_range(num, __fadd_rn(den, 1e-10f));",
     "        const float v = fminf(fmaxf(__fdiv_rn(num, __fadd_rn(den, 1e-10f)), -1.0f), 1.0f);")]
-FUSED_NO_PREFETCH = [("""    if (gn < groups) {
-      n0 = __ldg(words + 3 * gn);
-      n1 = __ldg(words + 3 * gn + 1);
-      n2 = __ldg(words + 3 * gn + 2);
-    }
-    const uint32_t cur[3] = {c0, c1, c2};""", """    const uint32_t cur[3] = {c0, c1, c2};"""),
-                     ("""    c0 = n0;
-    c1 = n1;
-    c2 = n2;
-    g = gn;""", """    if (gn < groups) {
-      n0 = __ldg(words + 3 * gn);
-      n1 = __ldg(words + 3 * gn + 1);
-      n2 = __ldg(words + 3 * gn + 2);
-    }
-    c0 = n0;
-    c1 = n1;
-    c2 = n2;
-    g = gn;""")]
+FUSED_NO_PREFETCH = [("""      if (gn < g1) {
+        n0 = __ldg(words + 3 * gn);
+        n1 = __ldg(words + 3 * gn + 1);
+        n2 = __ldg(words + 3 * gn + 2);
+      }
+      const uint32_t cur[3] = {c0, c1, c2};""", """      const uint32_t cur[3] = {c0, c1, c2};"""),
+                     ("""      c0 = n0;
+      c1 = n1;
+      c2 = n2;
+      g = gn;""", """      if (gn < g1) {
+        n0 = __ldg(words + 3 * gn);
+        n1 = __ldg(words + 3 * gn + 1);
+        n2 = __ldg(words + 3 * gn + 2);
+      }
+      c0 = n0;
+      c1 = n1;
+      c2 = n2;
+      g = gn;""")]
 
 
 FUSED_BIN = """          int bin = min(__float_as_int(__fadd_rd(__fmul_rn(u, 25.0f), kTwo23)) - kTwo23Bits,
@@ -244,7 +244,7 @@ FUSED_NO_STATS = [("""        t_sum[k] += v;
         t_above[k] += __float_as_uint(__fsub_rn(thr, v)) >> 31;  // v > thr
 """, """        t_sum[k] = v + thr;
 """)]
-FUSED_NO_LUT = [("        if (kRenders) col[i] = s_lut[k * kBytes + byte];",
+FUSED_NO_LUT = [("        if (kRenders) col[i] = ok[i] ? s_lut[k * kBytes + byte] : 0u;",
                  "        if (kRenders) col[i] = byte * 0x010101;")]
 
 
@@ -281,14 +281,16 @@ FUSED_STREAMING_STORES = [
 
 
 FUSED_CONTIGUOUS = [
-    ("  const uint32_t stride = gridDim.x * kThreads;\n  uint32_t g = blockIdx.x * kThreads + tid;",
-     "  const uint32_t stride = kThreads;\n"
-     "  const uint32_t chunk = ((groups + gridDim.x - 1) / gridDim.x + kThreads - 1) / kThreads * kThreads;\n"
-     "  const uint32_t last = min(groups, (blockIdx.x + 1) * chunk);\n"
-     "  uint32_t g = blockIdx.x * chunk + tid;"),
-    ("  if (g < groups) {\n    c0 = __ldg(words + 3 * g);", "  if (g < last) {\n    c0 = __ldg(words + 3 * g);"),
-    ("  while (g < groups) {", "  while (g < last) {"),
-    ("    if (gn < groups) {", "    if (gn < last) {"),
+    ("  const uint32_t stride = gridDim.x * kThreads;", "  const uint32_t stride = kThreads;"),
+    ("    uint32_t g = g0 + blockIdx.x * kThreads + tid;",
+     "    const uint32_t chunk =\n"
+     "        ((g1 - g0 + gridDim.x - 1) / gridDim.x + kThreads - 1) / kThreads * kThreads;\n"
+     "    const uint32_t last = min(g1, g0 + (blockIdx.x + 1) * chunk);\n"
+     "    uint32_t g = g0 + blockIdx.x * chunk + tid;"),
+    ("    if (g < g1) {\n      c0 = __ldg(words + 3 * g);",
+     "    if (g < last) {\n      c0 = __ldg(words + 3 * g);"),
+    ("    while (g < g1) {", "    while (g < last) {"),
+    ("      if (gn < g1) {", "      if (gn < last) {"),
 ]
 
 

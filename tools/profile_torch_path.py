@@ -2,6 +2,7 @@
 """Where the time of rgnir_torch's analysis path goes, on one CUDA card.
 
     python3 tools/profile_torch_path.py [--batch 8] [--size 1024] [--calls 5]
+                                        [--mosaic 8192] [--only-mosaic]
 
 For each configuration of chip_smoke.py's path phase (NDVI, GNDVI and
 NDWI with renders and the 50-bin histogram; NDVI alone without the
@@ -19,6 +20,10 @@ histogram; the three kinds again with the one-pass select,
   sum is the busy time. The profiler slows the host, so the idle share
   of the profiled window overstates an unprofiled call's.
 
+``--mosaic SIDE`` profiles the same way the sharded mosaic's kernel body
+(``parallel.analyze_mosaic(impl="kernel")``, the three kinds with
+renders) on a ``SIDE x SIDE`` mosaic over a 1-D mesh of one and of four
+shards of the card; ``--only-mosaic`` skips the frame configurations.
 A Chrome trace of each window goes to ``build/torch_path_traces/``.
 ``--onepass-group-mb 8,16,24`` also times the one-pass select kernel on
 the batch's canonical index maps with each group size (the L2-resident
@@ -87,6 +92,49 @@ def sweep_onepass_groups(torch, img, sizes_mb, reps=20):
         ks.ONEPASS_GROUP_BYTES = default
 
 
+def profile_call(torch, label, call, mpix, calls, trace_path):
+    """Wall time per call, then the device time by kernel name and the
+    device's busy share over a profiled window of ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(trace_path)
+    rows = []
+    for e in prof.key_averages():
+        dev_us = e.self_device_time_total
+        if e.device_type == DeviceType.CUDA and dev_us > 0:
+            rows.append((dev_us / calls / 1e3, e.count // calls, e.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    print(f"\n{label}: {wall_ms:.4f} ms per call, {mpix / wall_ms * 1e3:.1f} MPix/s "
+          f"(host clock, {calls} calls)", flush=True)
+    if busy_ms == 0:
+        print("  device time: not measured (the profiler saw no device time)")
+        return
+    per_call_window = window_ms / calls
+    print(f"  profiled window {per_call_window:.4f} ms per call; device busy "
+          f"{busy_ms:.4f} ms ({busy_ms / per_call_window:.1%}), idle "
+          f"{1 - busy_ms / per_call_window:.1%}; against the unprofiled "
+          f"wall time, idle {1 - busy_ms / wall_ms:.1%}")
+    for ms, count, name in rows[:20]:
+        print(f"  {ms:9.4f} ms  x{count:<3d} {name[:100]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=8)
@@ -94,11 +142,12 @@ def main() -> int:
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--onepass-group-mb", default="",
                     help="comma-separated group sizes to time the one-pass select at")
+    ap.add_argument("--mosaic", type=int, default=0,
+                    help="also profile the sharded mosaic's kernel body at this side")
+    ap.add_argument("--only-mosaic", action="store_true")
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("profile_torch_path: no CUDA device", file=sys.stderr)
@@ -120,47 +169,31 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)}; frames {shape}", flush=True)
 
     for n, (label, kinds, with_hist, onepass) in enumerate(CONFIGS):
+        if args.only_mosaic:
+            break
+
         def call():
             if onepass:
                 return analyze_image_kernel(img, kinds=kinds, with_hist=with_hist,
                                             select_onepass=True)
             return analyze_image_auto(img, kinds=kinds, with_hist=with_hist)
 
-        for _ in range(3):
-            call()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(args.calls):
-            call()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.calls
+        profile_call(torch, label, call, mpix, args.calls,
+                     os.path.join(out_dir, f"torch_path_trace_{n}.json"))
+    if args.mosaic:
+        from rgnir_torch.parallel import analyze_mosaic, make_mesh
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.calls):
-                call()
-            torch.cuda.synchronize()
-            window_ms = (time.perf_counter() - t0) * 1e3
-        prof.export_chrome_trace(os.path.join(out_dir, f"torch_path_trace_{n}.json"))
-        rows = []
-        for e in prof.key_averages():
-            dev_us = e.self_device_time_total
-            if e.device_type == DeviceType.CUDA and dev_us > 0:
-                rows.append((dev_us / args.calls / 1e3, e.count // args.calls, e.key))
-        rows.sort(reverse=True)
-        busy_ms = sum(r[0] for r in rows)
-        print(f"\n{label}: {wall_ms:.4f} ms per call, {mpix / wall_ms * 1e3:.1f} MPix/s "
-              f"(host clock, {args.calls} calls)", flush=True)
-        if busy_ms == 0:
-            print("  device time: not measured (the profiler saw no device time)")
-            continue
-        per_call_window = window_ms / args.calls
-        print(f"  profiled window {per_call_window:.4f} ms per call; device busy "
-              f"{busy_ms:.4f} ms ({busy_ms / per_call_window:.1%}), idle "
-              f"{1 - busy_ms / per_call_window:.1%}; against the unprofiled "
-              f"wall time, idle {1 - busy_ms / wall_ms:.1%}")
-        for ms, count, name in rows[:20]:
-            print(f"  {ms:9.4f} ms  x{count:<3d} {name[:100]}")
+        side = args.mosaic
+        mosaic = torch.as_tensor(np.random.default_rng(0).integers(
+            0, 256, (side, side, 3), dtype=np.uint8), device="cuda")
+        for shards in (1, 4):
+            mesh = make_mesh((shards,), ("d",), devices=[torch.device("cuda", 0)] * shards)
+            profile_call(
+                torch, f"mosaic kernel body {side}^2, three kinds, renders, {shards} shard(s)",
+                lambda: analyze_mosaic(mosaic, ("NDVI", "GNDVI", "NDWI"), mesh,
+                                       with_renders=True, impl="kernel"),
+                side * side / 1e6, args.calls,
+                os.path.join(out_dir, f"torch_mosaic_trace_{shards}.json"))
     if args.onepass_group_mb:
         print("\none-pass select kernel by group size:", flush=True)
         sweep_onepass_groups(torch, img, [int(x) for x in args.onepass_group_mb.split(",")])
