@@ -26,8 +26,9 @@ Phases, each reported on its own line:
    at 0, 1, a count that ends mid-word and all but one, on both inputs,
    and byte_hist (q24 and f32 keys) with prefixes and ``live_rc``
    rectangles (among them fewer live columns than the block's and no
-   live row), each against its plain version and timed beside its
-   default mode in the same call;
+   live row), and q24_tail with the same prefixes and rectangles, each
+   against its plain version and timed beside its default mode in the
+   same call;
 4. paths, each with every kernel's launch count set to 0 just before it
    and read just after, and held to the path's own set of kernels:
    ``analyze_image_auto`` on 8 x 1024^2 x 3 frames with NDVI, GNDVI and
@@ -42,10 +43,18 @@ Phases, each reported on its own line:
    shards of the one card, a (2, 2) mesh (row and column padding) and a
    1-D mesh with ``valid_rows`` over a pre-padded mosaic: the kernel body
    against the plain (``impl="jnp"``) body and the global statistics
-   against the one-frame path, the 1-D body's launches counted (hist 4,
-   fused 4, byte_hist 8 per kind); the f32 sharded select on the same
-   shards; and the kernel body's wall time and MPix/s at 8192^2 on one
-   and on four shards;
+   against the one-frame path, each body's launches counted (hist 4,
+   fused 4, byte_hist 8 and q24_tail 4: one per shard, or two rounds per
+   shard, for all kinds); the f32 sharded select on the same shards; the
+   kernel body's wall time and MPix/s at 8192^2 on one and on four
+   shards; then 9 and 17 kinds (the three built-ins and registered
+   ones) through ``fused_analyze``, ``analyze_image_auto`` and both
+   mosaic kernel bodies, against their plain versions, with one fused
+   launch per group of at most 8 kinds; and a frame of 32771 x 16383
+   pixels (more than 2^29, not a multiple of 4) with one kind: hist and
+   fused against their plain versions taken in bands of rows, and the
+   mosaic's kernel body on one shard of it against four shards, with the
+   phase's peak device memory;
 5. the kernel self-test (``rgnir_torch.testing.selftest``), which must
    pass;
 6. a ``kernels`` JSON line for the records.
@@ -620,7 +629,7 @@ def validity_checks(torch, timer, rates, shape, smi):
     nc = 2
     rows = default_out.idx.reshape(len(kinds) * b, hw)[: nc * b]
     rank = torch.full((nc * b,), (hw - 1) // 2, dtype=torch.int64, device="cuda")
-    sel, _, _ = cdf_pick(default_out.r0[:, :nc].transpose(0, 1).reshape(nc * b, 256), rank)
+    sel, below0, _ = cdf_pick(default_out.r0[:, :nc].transpose(0, 1).reshape(nc * b, 256), rank)
     f32_top = ks.byte_hist(rows, torch.zeros_like(rank), 24, key_mode="f32")
     f32_sel, _, _ = cdf_pick(f32_top, rank)
     cases = {"q24": (sel << 16, 8), "f32": (f32_sel << 24, 16)}
@@ -655,6 +664,42 @@ def validity_checks(torch, timer, rates, shape, smi):
                 max_abs_err=0.0)
     log(f"kernels {shape}: byte_hist (q24 and f32) with prefixes {n_valid_counts(hw)} and "
         f"rectangles {rects} of {(h, w)} blocks matches its plain version")
+
+    # q24_tail: each row's winning key from the q24 rounds over the whole
+    # row, the row's mean as the centre; each mode against its plain version
+    prefix, rk = sel << 16, rank - below0
+    for shift in (8, 0):
+        pick, below, _ = cdf_pick(ks.byte_hist(rows, prefix, shift), rk)
+        rk, prefix = rk - below, prefix | (pick << shift)
+    kp, means = prefix.to(torch.int32), rows.mean(dim=1)
+    var_err = {}
+    for kw in ([dict(n_valid=nv) for nv in n_valid_counts(hw)]
+               + [dict(live_rc=rc, row_major_cols=w) for rc in rects]):
+        got = ks.q24_tail(rows, kp, means, **kw)
+        want = ks.q24_tail_plain(rows, kp, means, **kw)
+        check_equal(torch, f"q24_tail.lo {kw} {shape}", got[0], want[0])
+        check_equal(torch, f"q24_tail.nxt {kw} {shape}", got[1], want[1])
+        live = kw["n_valid"] if "n_valid" in kw else kw["live_rc"][0] * kw["live_rc"][1]
+        var_err[str(kw)] = check_close(f"q24_tail.var {kw} {shape}", got[2] / max(live, 1),
+                                       want[2] / max(live, 1), VAR_ATOL)
+    modes = {"default": {}, "n_valid": dict(n_valid=hw - 1),
+             "live_rc": dict(live_rc=(h - 1, w - 3), row_major_cols=w)}
+    turns = list(modes) + list(modes)[::-1]
+    timed = [(m, timer.kernel(lambda: ks.q24_tail(rows, kp, means, **modes[m]))) for m in turns]
+    t = {m: statistics.mean(ms for mm, ms in timed if mm == m) for m in modes}
+    log(f"kernel q24_tail {shape}, in turns {', '.join(f'{m} {ms:.4f}' for m, ms in timed)} ms: "
+        f"default {t['default']:.4f} ms, n_valid={hw - 1} {t['n_valid']:.4f} ms "
+        f"({t['n_valid'] / t['default']:.3f}x), live_rc={(h - 1, w - 3)} of {(h, w)} "
+        f"{t['live_rc']:.4f} ms ({t['live_rc'] / t['default']:.3f}x) [{smi}]")
+    for m in ("n_valid", "live_rc"):
+        live = hw - 1 if m == "n_valid" else (h - 1) * (w - 3)
+        nbytes = nc * b * live * 4
+        records["q24_tail_" + m] = dict(
+            ms=t[m], plain_ms=timer.kernel(lambda: ks.q24_tail_plain(rows, kp, means, **modes[m])),
+            library_ms=None, bytes=nbytes, bound=(nbytes / bw_rate * 1e3, "bytes"),
+            max_abs_err=var_err[str(modes[m])])
+    log(f"kernels {shape}: q24_tail with prefixes {n_valid_counts(hw)} and rectangles {rects} "
+        f"matches its plain version (var err up to {max(var_err.values())})")
     return records
 
 
@@ -662,7 +707,11 @@ def validity_checks(torch, timer, rates, shape, smi):
 
 MOSAIC_SHAPE = (4093, 4099)
 MOSAIC_BIG = 8192  # the timed mosaic's side
-MOSAIC_PATH = ("hist", "fused", "byte_hist")
+MOSAIC_PATH = ("hist", "fused", "byte_hist", "q24_tail")
+# each kernel body on four shards: per shard one hist and one fused launch,
+# two byte_hist rounds (round 0 is fused's) and one q24_tail pass, each
+# serving every kind
+MOSAIC_LAUNCHES = {"hist": 4, "fused": 4, "byte_hist": 8, "q24_tail": 4, "q24_onepass": 0}
 
 
 def ceil_to(x, m):
@@ -734,11 +783,10 @@ def mosaic_paths(torch, timer, wrappers, smi):
         runs[name] = (got, launches)
         log(f"mosaic {name} {(h, w)} kinds={list(KINDS)} renders: kernel body matches the "
             f"jnp body and the one-frame path; launches {launches}")
-    # two byte_hist rounds per shard and kind: round 0 is fused's
-    expected = {"hist": 4, "fused": 4, "byte_hist": 8 * len(KINDS), "q24_tail": 0,
-                "q24_onepass": 0}
     launches_1d, launches_22 = runs["1-D, 4 shards"][1], runs["(2, 2)"][1]
-    require(launches_1d == expected, f"1-D kernel body launches {launches_1d} == {expected}")
+    for name, (_, launches) in runs.items():
+        require(launches == MOSAIC_LAUNCHES,
+                f"mosaic {name} kernel body launches {launches} == {MOSAIC_LAUNCHES}")
 
     # the f32 sharded select over the same shards, prefix and rectangle
     f32 = {}
@@ -779,8 +827,161 @@ def mosaic_paths(torch, timer, wrappers, smi):
     return {"hist_n_valid": launches_1d["hist"], "fused_n_valid": launches_1d["fused"],
             "byte_hist_n_valid": launches_1d["byte_hist"],
             "byte_hist_live_rc": launches_22["byte_hist"],
+            "q24_tail_n_valid": launches_1d["q24_tail"],
+            "q24_tail_live_rc": launches_22["q24_tail"],
             "byte_hist_f32_n_valid": f32["n_valid"]["byte_hist"],
             "byte_hist_f32_live_rc": f32["live_rc"]["byte_hist"]}
+
+
+# --- phase 4c: any number of kinds, and a frame above 2^29 pixels ------------
+
+MANY_KINDS = (9, 17)
+EXTRA_PAIRS = ((0, 1), (1, 0), (0, 2), (2, 0), (1, 2), (2, 1))
+EXTRA_THRESHOLDS = (-0.5, 0.0, 0.25, 0.6, -0.1)
+EXTRA_CMAPS = ("RdYlGn", "RdYlBu", "bwr", "gray", "viridis")
+BIG_FRAME = (32771, 16383)  # 536,887,293 pixels: 2^29 + 16,381, not a multiple of 4
+BAND_ROWS = 2048  # rows of the big frame per plain-version band
+
+
+def many_kinds(nk):
+    """The names of the three built-in kinds and ``nk - 3`` registered
+    ones, over every band pair, thresholds of both signs and every
+    colormap."""
+    from rgnir_torch.config import register_index
+
+    names = list(KINDS)
+    for i in range(nk - len(KINDS)):
+        names.append(register_index(
+            f"SMOKE_K{i}", EXTRA_PAIRS[i % len(EXTRA_PAIRS)],
+            coverage_threshold=EXTRA_THRESHOLDS[i % len(EXTRA_THRESHOLDS)],
+            cmap_name=EXTRA_CMAPS[i % len(EXTRA_CMAPS)], feature_name="Smoke").name)
+    return tuple(names)
+
+
+def many_kinds_checks(torch, wrappers):
+    """``fused_analyze``, ``analyze_image_auto`` and ``analyze_mosaic``'s
+    kernel bodies with 9 and 17 kinds, one fused launch per group of at
+    most ``MAX_KINDS``, each against its plain version."""
+    from rgnir_torch.config import IndexKind
+    from rgnir_torch.kernels.fused import MAX_KINDS
+    from rgnir_torch.parallel import analyze_mosaic, make_mesh
+    from rgnir_torch.pipeline.dispatch import analyze_image_auto
+    from rgnir_torch.pipeline.fused import analyze_image
+
+    cuda = torch.device("cuda", 0)
+    img = uniform_frames(torch, OFFSET_VIEW_SHAPE, skip=1)
+    frames = uniform_frames(torch, (2, 256, 384))
+    h, w = 1021, 1503
+    mosaic = torch.as_tensor(np.random.default_rng(SEED + 4).integers(
+        0, 256, (h, w, 3), dtype=np.uint8), device="cuda")
+    meshes = (("1-D, 4 shards", make_mesh((4,), ("d",), devices=[cuda] * 4)),
+              ("(2, 2)", make_mesh((2, 2), ("dr", "dc"), devices=[cuda] * 4)))
+    for nk in MANY_KINDS:
+        names = many_kinds(nk)
+        kinds = tuple(IndexKind.parse(k) for k in names)
+        groups = -(-nk // MAX_KINDS)
+        _, launches = count_launches(
+            torch, wrappers, ("hist", "fused"), f"fused {nk} kinds",
+            lambda: check_hist_fused(torch, f"{nk} kinds {OFFSET_VIEW_SHAPE}", img, kinds,
+                                     (True,) * nk))
+        require(launches["fused"] == groups, f"fused {nk} kinds: {groups} launches")
+        res, path_launches = count_launches(
+            torch, wrappers, DEFAULT_PATH, f"path {nk} kinds",
+            lambda: analyze_image_auto(frames, kinds=names, device="cuda"))
+        require(path_launches["fused"] == groups, f"path {nk} kinds: {groups} fused launches")
+        check_result(torch, f"path {nk} kinds", res,
+                     analyze_image(frames, kinds=names, device="cuda"), names, True)
+        mosaic_launches = {}
+        for name, mesh in meshes:
+            got, mosaic_launches[name] = count_launches(
+                torch, wrappers, MOSAIC_PATH, f"mosaic {name} {nk} kinds",
+                lambda: analyze_mosaic(mosaic, kinds=names, mesh=mesh, with_renders=True,
+                                       impl="kernel"))
+            want_launches = dict(MOSAIC_LAUNCHES, fused=4 * groups)
+            require(mosaic_launches[name] == want_launches,
+                    f"mosaic {name} {nk} kinds: launches {want_launches}")
+            want = analyze_mosaic(mosaic, kinds=names, mesh=mesh, with_renders=True, impl="jnp")
+            check_mosaic(torch, f"mosaic {name} {nk} kinds kernel vs jnp", got, want, names, h, w)
+        log(f"{nk} kinds ({groups} fused launches per frame batch): fused at "
+            f"{OFFSET_VIEW_SHAPE} (frames 1: of 4), analyze_image_auto at (2, 256, 384) and "
+            f"the mosaic's kernel bodies at {(h, w)} match their plain versions; launches "
+            f"fused {launches}, path {path_launches}, mosaic {mosaic_launches}")
+
+
+def big_frame_checks(torch, wrappers, smi):
+    """A frame of more than 2^29 pixels, whose count is not a multiple of
+    4, with one kind: hist and fused (one launch per chunk) against their
+    plain versions taken band by band with the same bounds, then
+    ``analyze_mosaic(impl="kernel")`` on one shard of it against four
+    shards, each below 2^29 pixels."""
+    from rgnir_torch.config import IndexKind
+    from rgnir_torch.kernels import fused as kf
+    from rgnir_torch.kernels import hist as kh
+    from rgnir_torch.ops.wb import wb_bounds_from_histogram
+    from rgnir_torch.parallel import analyze_mosaic, make_mesh
+
+    h, w = BIG_FRAME
+    n = h * w
+    require(n > 2 ** 29 and n % 4 != 0, f"{BIG_FRAME} has more than 2^29 pixels")
+    cuda = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(SEED + 5)
+    img = torch.randint(0, 256, (1, h, w, 3), dtype=torch.uint8, device=cuda, generator=gen)
+    kinds = (IndexKind.parse("NDVI"),)
+    chunks = -(-n // kf.CHUNK_PIXELS)
+    bands = range(0, h, BAND_ROWS)
+
+    hist, _ = count_launches(torch, wrappers, ("hist",), "hist big frame",
+                             lambda: kh.channel_histograms(img))
+    want_hist = torch.stack([kh.histograms_plain(img[:, r:r + BAND_ROWS]) for r in bands]).sum(0)
+    check_equal(torch, f"hist {BIG_FRAME}", hist, want_hist.to(hist.dtype))
+    lo, hi = wb_bounds_from_histogram(hist, n=n)
+    out, launches = count_launches(
+        torch, wrappers, ("fused",), "fused big frame",
+        lambda: kf.fused_analyze(img, lo, hi, kinds, True, True, (True,)))
+    require(launches["fused"] == chunks, f"fused {BIG_FRAME}: {chunks} launches")
+    acc = None
+    idx_err = 0.0
+    for r in bands:
+        ref = kf.fused_analyze_plain(img[:, r:r + BAND_ROWS], lo, hi, kinds, True, True, (True,))
+        what = f"fused {BIG_FRAME} rows {r}:{r + BAND_ROWS}"
+        check_equal(torch, f"{what} wb", out.wb[:, r:r + BAND_ROWS], ref.wb)
+        check_equal(torch, f"{what} rgb", out.rgb[:, :, r:r + BAND_ROWS], ref.rgb)
+        idx_err = max(idx_err, check_close(f"{what} idx", out.idx[:, :, r:r + BAND_ROWS],
+                                           ref.idx, IDX_ATOL))
+        if acc is None:
+            acc = {name: getattr(ref, name).clone()
+                   for name in ("sum", "min", "max", "above", "hist50", "r0")}
+            continue
+        for name in ("sum", "above", "hist50", "r0"):
+            acc[name] += getattr(ref, name)
+        acc["min"] = torch.minimum(acc["min"], ref.min)
+        acc["max"] = torch.maximum(acc["max"], ref.max)
+    for name in ("min", "max", "above", "hist50", "r0"):
+        check_equal(torch, f"fused {BIG_FRAME} {name}", getattr(out, name), acc[name])
+    mean_err = check_close(f"fused {BIG_FRAME} mean", out.sum / n, acc["sum"] / n, MEAN_ATOL)
+    log(f"hist and fused {BIG_FRAME} ({n} pixels, {chunks} fused launches): match their plain "
+        f"versions taken in bands of {BAND_ROWS} rows (idx err {idx_err}, mean err {mean_err})")
+    del out, ref, acc
+
+    mosaic = img[0]
+    mesh1 = make_mesh((1,), ("d",), devices=[cuda])
+    one, launches1 = count_launches(
+        torch, wrappers, MOSAIC_PATH, "mosaic big frame, 1 shard",
+        lambda: analyze_mosaic(mosaic, kinds=("NDVI",), mesh=mesh1, impl="kernel"))
+    require(launches1["fused"] == chunks, f"mosaic 1 shard: {chunks} fused launches")
+    four = analyze_mosaic(mosaic, kinds=("NDVI",), mesh=make_mesh((4,), ("d",),
+                                                                    devices=[cuda] * 4),
+                          impl="kernel")
+    check_mosaic(torch, f"mosaic {BIG_FRAME} 1 shard vs 4 shards", one, four, ("NDVI",), h, w)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"mosaic kernel body {BIG_FRAME}, NDVI: one shard of {n} pixels matches four shards "
+        f"of at most {-(-h // 4) * w}; launches {launches1}; peak device memory of the phase "
+        f"{peak / 2 ** 30:.2f} GiB [{smi}]")
+    del one, four, img, mosaic
+    torch.cuda.empty_cache()
 
 
 KERNEL_SOURCES = {
@@ -797,6 +998,8 @@ KERNEL_SOURCES = {
     "byte_hist_live_rc": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:55"),
     "byte_hist_f32_n_valid": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:55"),
     "byte_hist_f32_live_rc": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:55"),
+    "q24_tail_n_valid": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:220"),
+    "q24_tail_live_rc": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:220"),
 }
 
 
@@ -858,6 +1061,8 @@ def main() -> int:
     path_launches = dict(launches, q24_onepass=onepass_launches["q24_onepass"],
                          byte_hist_f32=f32_launches["byte_hist"])
     path_launches.update(mosaic_paths(torch, timer, WRAPPERS, smi))
+    many_kinds_checks(torch, WRAPPERS)
+    big_frame_checks(torch, WRAPPERS, smi)
 
     # 5. the kernel self-test
     from rgnir_torch.testing import selftest

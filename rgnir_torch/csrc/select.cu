@@ -16,15 +16,17 @@
 // group of `group` rows are selected, and the skipped rows are never
 // read; group = take = 1 selects every row.
 //
-// Positional validity of byte_hist (the TPU kernel's modes, for the
-// sharded median): a prefix (the first n_valid elements of each row) or
-// a rectangle (each row a row-major (n / row_cols, row_cols) block of
-// which the top-left rows_live x cols_live count). The prefix is a
-// shorter row: the default instantiation's loop unchanged (the default is
-// n_valid = n), reading only the valid elements. The rectangle has its
+// Positional validity of byte_hist and q24_tail (the TPU kernels' modes,
+// for the sharded median): a prefix (the first n_valid elements of each
+// row) or a rectangle (each row a row-major (n / row_cols, row_cols)
+// block of which the top-left rows_live x cols_live count). The prefix is
+// a shorter row: the default instantiation's loop unchanged (the default
+// is n_valid = n), reading only the valid elements. The rectangle has its
 // own instantiation, which walks the live rows whole as the prefix walks
-// its elements and counts the live columns, a thread carrying its column
-// from step to step (PERF.md has the variants measured). Positions and
+// its elements, loads every element and takes only the live columns, a
+// thread carrying its column from step to step (PERF.md has the variants
+// measured). An element outside the valid set has no key (the TPU
+// kernel's key -1) and adds 0 to the sum of squares. Positions and
 // columns are 64-bit.
 //
 // Bound: memory. Each pass reads every selected element once (4 bytes):
@@ -105,34 +107,67 @@ byte_hist_kernel(const float* __restrict__ vals, long long n, long long live,
   }
 }
 
-// lohi[row] = (least value whose key is kp, least value whose key
-// exceeds kp); ss[row] = sum of (v - mean)^2.
+// lohi[row] = (least valid value whose key is kp, least valid value whose
+// key exceeds kp); ss[row] = sum of (v - mean)^2 over the valid values.
+// The valid values are the first `live` of the row, or with kRect the
+// columns before `cols` of its first `live` elements (whole rows of a
+// row_cols-wide block), as for byte_hist_kernel.
+template <bool kRect>
 __global__ void __launch_bounds__(kThreads)
-q24_tail_kernel(const float* __restrict__ vals, long long n,
-                const int* __restrict__ kp, const float* __restrict__ means,
-                int group, int take, float* __restrict__ lohi,
-                double* __restrict__ ss) {
+q24_tail_kernel(const float* __restrict__ vals, long long n, long long live,
+                long long cols, long long row_cols, const int* __restrict__ kp,
+                const float* __restrict__ means, int group, int take,
+                float* __restrict__ lohi, double* __restrict__ ss) {
   const long long row = blockIdx.y;
   const float* x = vals + input_row(row, group, take) * n;
   const int target = kp[row];
   const float mean = means[row];
   float lo = INFINITY, nx = INFINITY, s = 0.0f;
   const long long start = static_cast<long long>(blockIdx.x) * kElemsPerBlock;
-  const long long end = min(start + kElemsPerBlock, n);
-  for (long long i = start + threadIdx.x; i < end; i += kThreads) {
-    const float v = __ldg(x + i);
+  const long long end = min(start + kElemsPerBlock, live);
+  auto take_value = [&](float v, bool valid) {
     const int key = q24_key(v);
-    if (key == target) lo = fminf(lo, v);
-    if (key > target) nx = fminf(nx, v);
+    if (valid && key == target) lo = fminf(lo, v);
+    if (valid && key > target) nx = fminf(nx, v);
     const float c = v - mean;
-    s += c * c;
+    if (valid) s += c * c;
+  };
+  if (!kRect) {
+    for (long long i = start + threadIdx.x; i < end; i += kThreads) {
+      take_value(__ldg(x + i), true);
+    }
+  } else {
+    // byte_hist_kernel's rectangle walk: every element of the live rows
+    // loaded, the column carried from step to step.
+    long long c = (start + threadIdx.x) % row_cols;
+    const long long step_c = kThreads % row_cols;
+    for (long long i = start + threadIdx.x; i < end; i += kThreads) {
+      take_value(__ldg(x + i), c < cols);
+      c += step_c;
+      if (c >= row_cols) c -= row_cols;
+    }
   }
   block_fold_tail<kWarps>(lo, nx, s, lohi + row * 2, ss + row);
 }
 
-dim3 row_grid(long long rows, long long n) {
-  return dim3(static_cast<unsigned>((n + kElemsPerBlock - 1) / kElemsPerBlock),
-              static_cast<unsigned>(rows));
+// The grid of a row pass over `live` positions of each row: at least one
+// block per row, so that every row's outputs are written.
+dim3 row_grid(long long rows, long long live) {
+  const long long blocks = std::max(1LL, (live + kElemsPerBlock - 1) / kElemsPerBlock);
+  return dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(rows));
+}
+
+// The positions a row's walk covers (the prefix, or the rectangle's live
+// rows whole), or -1 for a validity the row does not hold.
+long long walk_length(long long n, long long n_valid, long long cols_live,
+                      long long row_cols) {
+  if (n_valid < 0 || row_cols < 0) return -1;
+  if (row_cols == 0) return n_valid <= n ? n_valid : -1;
+  if (n % row_cols != 0 || n_valid > n / row_cols || cols_live < 0 ||
+      cols_live > row_cols) {
+    return -1;
+  }
+  return n_valid * row_cols;
 }
 
 template <int Mode>
@@ -163,18 +198,9 @@ RGNIR_EXPORT int rgnir_byte_hist(const void* vals, long long rows, long long n,
                                  int key_mode, int group, int take, void* out,
                                  void* stream) {
   const int top_shift = key_mode == kF32 ? 24 : 16;
+  const long long live = walk_length(n, n_valid, cols_live, row_cols);
   if (shift < 0 || shift > top_shift || shift % 8 != 0 || take < 1 ||
-      group < take || n_valid < 0 || row_cols < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  long long live = n_valid;  // the positions a row's walk covers
-  if (row_cols > 0) {
-    if (n % row_cols != 0 || n_valid > n / row_cols || cols_live < 0 ||
-        cols_live > row_cols) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    live = n_valid * row_cols;  // the live rows, whole
-  } else if (n_valid > n) {
+      group < take || live < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // The key bits above this round's byte; none in the top round. The
@@ -185,8 +211,7 @@ RGNIR_EXPORT int rgnir_byte_hist(const void* vals, long long rows, long long n,
     const auto* p = static_cast<const unsigned*>(prefix);
     auto* o = static_cast<int*>(out);
     const auto s = static_cast<cudaStream_t>(stream);
-    const long long blocks = std::max(1LL, (live + kElemsPerBlock - 1) / kElemsPerBlock);
-    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(rows));
+    const dim3 grid = row_grid(rows, live);
     if (key_mode == kF32) {
       launch_byte_hist<kF32>(grid, s, v, n, live, cols_live, row_cols, p, shift,
                              hi_mask, group, take, o);
@@ -198,19 +223,30 @@ RGNIR_EXPORT int rgnir_byte_hist(const void* vals, long long rows, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// vals: (B, n) f32; rows, group, take as for rgnir_byte_hist; kp:
-// (rows,) i32; means: (rows,) f32; lohi: (rows, 2) f32 set to +inf by the
-// caller; ss: (rows,) f64 zeroed.
+// vals: (B, n) f32; rows, group, take and the validity (n_valid,
+// cols_live, row_cols) as for rgnir_byte_hist; kp: (rows,) i32; means:
+// (rows,) f32; lohi: (rows, 2) f32 set to +inf by the caller; ss: (rows,)
+// f64 zeroed.
 RGNIR_EXPORT int rgnir_q24_tail(const void* vals, long long rows, long long n,
-                                const void* kp, const void* means, int group,
-                                int take, void* lohi, void* ss, void* stream) {
-  if (take < 1 || group < take) return static_cast<int>(cudaErrorInvalidValue);
+                                long long n_valid, long long cols_live,
+                                long long row_cols, const void* kp, const void* means,
+                                int group, int take, void* lohi, void* ss, void* stream) {
+  const long long live = walk_length(n, n_valid, cols_live, row_cols);
+  if (take < 1 || group < take || live < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (rows > 0 && n > 0) {
-    q24_tail_kernel<<<row_grid(rows, n), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(vals), n, static_cast<const int*>(kp),
-        static_cast<const float*>(means), group, take,
-        static_cast<float*>(lohi), static_cast<double*>(ss));
+    const auto* v = static_cast<const float*>(vals);
+    const auto* k = static_cast<const int*>(kp);
+    const auto* m = static_cast<const float*>(means);
+    auto* lh = static_cast<float*>(lohi);
+    auto* sq = static_cast<double*>(ss);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (row_cols > 0) {
+      q24_tail_kernel<true><<<row_grid(rows, live), kThreads, 0, s>>>(
+          v, n, live, cols_live, row_cols, k, m, group, take, lh, sq);
+    } else {
+      q24_tail_kernel<false><<<row_grid(rows, live), kThreads, 0, s>>>(
+          v, n, live, cols_live, row_cols, k, m, group, take, lh, sq);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,6 +12,12 @@ TPU kernel's prefix mask, for a shard whose last rows are padding)
 leaves each frame's pixels from the ``n_valid``-th on out of every
 statistic and histogram; they still get wb and index values, and their
 renders are zero bytes, as the TPU kernel's are.
+
+The kernel takes at most ``MAX_KINDS`` kinds and ``CHUNK_PIXELS`` pixels
+of each frame per launch; the wrapper launches it once per group of kinds
+and chunk of the frames, each adding into the same accumulators, so it
+takes any number of kinds and frames of up to ``MAX_FRAME_PIXELS``
+(``2^31 - 1``, the JAX package's ``flatten_to_rows`` limit).
 """
 
 from __future__ import annotations
@@ -31,13 +37,15 @@ from rgnir_torch.kernels.hist import check_n_valid
 from rgnir_torch.ops.indices import band_indices
 from rgnir_torch.ops.stats import hist_edges, histogram_fixed_bins
 
-MAX_KINDS = 8  # kMaxKinds in csrc/fused.cu
+MAX_KINDS = 8  # kMaxKinds in csrc/fused.cu: kinds per launch
+CHUNK_PIXELS = 1 << 29  # kChunkPixels: pixels of a frame per launch
+MAX_FRAME_PIXELS = (1 << 31) - 1  # kMaxFramePixels
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _P, _P, _P, _P, _I32, _I32,
-             _P, _P, _P, _P, _P, _P, _P, _P, _P)
+_ARGTYPES = (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _I32, _P, _P, _P, _P,
+             _I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P)
 
 
 @dataclasses.dataclass
@@ -187,12 +195,15 @@ def fused_analyze(
             f"expected (B, H, W, 3) uint8 on CUDA, got {tuple(img.shape)} "
             f"{img.dtype} on {img.device}"
         )
-    if not 1 <= nk <= MAX_KINDS:
-        raise ValueError(f"the fused kernel takes 1 to {MAX_KINDS} kinds, got {nk}")
+    if nk < 1:
+        raise ValueError("the fused kernel needs at least one kind")
     dev = img.device
     img = img.contiguous()
     b, h, w, _ = img.shape
     hw = h * w
+    if hw > MAX_FRAME_PIXELS:
+        raise ValueError(f"a frame of {hw} pixels exceeds the kernel's "
+                         f"{MAX_FRAME_PIXELS}; shard it with parallel.analyze_mosaic")
     n_valid = check_n_valid(n_valid, hw)
     lo = lo.to(device=dev, dtype=torch.float32).contiguous()
     hi = hi.to(device=dev, dtype=torch.float32).contiguous()
@@ -221,18 +232,29 @@ def fused_analyze(
     r0 = parts[4].view(b, nk, 256)
     hist50 = parts[5].view(b, nk, HIST_BINS) if with_hist else None
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    def at(t, k0, per_kind):
+        """Address of kind ``k0``'s first element in ``t``, whose kinds
+        lie ``per_kind`` elements apart."""
+        return None if t is None else t.data_ptr() + k0 * per_kind * t.element_size()
 
-    launch("fused", "rgnir_fused", _ARGTYPES, (
-        img.data_ptr(), lo.data_ptr(), hi.data_ptr(), luts.data_ptr(), edges.data_ptr(),
-        b, hw, n_valid, nk, ia.ctypes.data, ib.ctypes.data, thr.ctypes.data,
-        r0mask.ctypes.data, int(with_renders), int(with_hist),
-        wb.data_ptr(), idx.data_ptr(), ptr(rgb), sums.data_ptr(),
-        mn.data_ptr(), mx.data_ptr(), above.data_ptr(), ptr(hist50),
-        r0.data_ptr(),
-    ), dev)
-    fused_analyze.launches += 1
+    # One launch per group of kinds and chunk of the frames: the groups'
+    # slices of idx and rgb are contiguous (kind-major), the accumulators
+    # are addressed at the group's column with a row stride of nk, and wb
+    # is stored by the first group only.
+    for k0 in range(0, nk, MAX_KINDS):
+        k1 = min(k0 + MAX_KINDS, nk)
+        for base in range(0, max(hw, 1), CHUNK_PIXELS):
+            length = min(CHUNK_PIXELS, hw - base)
+            launch("fused", "rgnir_fused", _ARGTYPES, (
+                img.data_ptr(), lo.data_ptr(), hi.data_ptr(), at(luts, k0, 768),
+                edges.data_ptr(), b, hw, base, length, min(max(n_valid - base, 0), length),
+                k1 - k0, nk, ia[k0:k1].ctypes.data, ib[k0:k1].ctypes.data,
+                thr[k0:k1].ctypes.data, r0mask[k0:k1].ctypes.data, int(with_renders),
+                int(with_hist), int(k0 == 0), wb.data_ptr(), at(idx, k0, b * hw),
+                at(rgb, k0, b * hw * 3), at(sums, k0, 1), at(mn, k0, 1), at(mx, k0, 1),
+                at(above, k0, 1), at(hist50, k0, HIST_BINS), at(r0, k0, 256),
+            ), dev)
+            fused_analyze.launches += 1
     return FusedOut(wb=wb, idx=idx, rgb=rgb, sum=sums, min=mn, max=mx,
                     above=above, hist50=hist50, r0=r0)
 

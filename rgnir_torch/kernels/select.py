@@ -13,11 +13,11 @@ Kernels, in place of the TPU kernels of ``rgnir_tpu/kernels/select.py``:
 
 ``take_prefix=(group, take)`` views the B input rows as groups of
 ``group`` consecutive rows and selects the first ``take`` of each; the
-kernels never read the skipped rows. ``byte_hist`` also takes the TPU
-kernel's positional validity: a prefix (``n_valid``) or a rectangle
-(``live_rc``), for :func:`masked_median_sharded`, the median over a list
-of shards. The cdf picks between rounds are O(256) tensor ops on the
-device, so a select makes no host round trip.
+kernels never read the skipped rows. ``byte_hist`` and ``q24_tail`` also
+take the TPU kernels' positional validity: a prefix (``n_valid``) or a
+rectangle (``live_rc``), for :func:`masked_median_sharded`, the median
+over a list of shards. The cdf picks between rounds are O(256) tensor ops
+on the device, so a select makes no host round trip.
 """
 
 from __future__ import annotations
@@ -30,8 +30,6 @@ import torch
 
 from rgnir_torch.kernels._build import launch
 from rgnir_torch.ops.select import (
-    Q24_MAX,
-    Q24_SCALE,
     SHIFTS,
     cdf_pick,
     f32_from_ordered_u32,
@@ -202,39 +200,51 @@ byte_hist.launches = 0
 def q24_tail_plain(
     rows: torch.Tensor, kp: torch.Tensor, means: torch.Tensor,
     take_prefix: Optional[Tuple[int, int]] = None,
+    n_valid: Optional[int] = None, live_rc: Optional[LiveRC] = None,
+    row_major_cols: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per selected row: the least value whose q24 key is ``kp``, the
-    least value whose key exceeds it, and the sum of squares about
-    ``means``."""
-    x = _selected(rows, take_prefix)
+    """Per selected row, over its valid elements: the least value whose
+    q24 key is ``kp``, the least value whose key exceeds it (``inf`` where
+    none), and the sum of squares about ``means``."""
+    x = _valid_elements(_selected(rows, take_prefix), n_valid, live_rc, row_major_cols)
+    sumsq = torch.square(x - means.to(torch.float32)[:, None]).sum(dim=-1, dtype=torch.float64)
+    if not x.shape[-1]:
+        inf = torch.full(x.shape[:-1], float("inf"), dtype=torch.float32, device=x.device)
+        return inf, inf.clone(), sumsq
     keys = q24_keys(x)
     kp = kp.to(torch.int64)[:, None]
     inf = torch.full_like(x, float("inf"))
     lo = torch.where(keys == kp, x, inf).amin(dim=-1)
     nxt = torch.where(keys > kp, x, inf).amin(dim=-1)
-    c = x - means.to(torch.float32)[:, None]
-    return lo, nxt, (c * c).sum(dim=-1, dtype=torch.float64)
+    return lo, nxt, sumsq
 
 
 def q24_tail(
     rows: torch.Tensor, kp: torch.Tensor, means: torch.Tensor,
     take_prefix: Optional[Tuple[int, int]] = None,
+    n_valid: Optional[int] = None, live_rc: Optional[LiveRC] = None,
+    row_major_cols: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The q24 select's tail pass: ``(lo, nxt)`` float32 and the centred
-    sum of squares float64, each ``(Bsel,)``. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel."""
+    sum of squares float64, each ``(Bsel,)``, over each selected row's
+    valid elements: all of them, the first ``n_valid``, or the ``live_rc``
+    rectangle of a row viewed as a ``row_major_cols``-wide block, as for
+    :func:`byte_hist`. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel."""
     if rows.device.type == "cpu":
-        return q24_tail_plain(rows, kp, means, take_prefix)
+        return q24_tail_plain(rows, kp, means, take_prefix, n_valid, live_rc, row_major_cols)
     b_sel, group, take = _row_map(rows.shape[0], take_prefix)
     _check_rows(rows, b_sel, kp, means)
+    nv, cols_live, bw = _validity(rows.shape[1], n_valid, live_rc, row_major_cols)
     rows = rows.contiguous()
     kp = kp.to(torch.int32).contiguous()
     means = means.to(torch.float32).contiguous()
     lohi = torch.full((b_sel, 2), float("inf"), dtype=torch.float32, device=rows.device)
     ss = torch.zeros(b_sel, dtype=torch.float64, device=rows.device)
-    launch("select", "rgnir_q24_tail", (_P, _I64, _I64, _P, _P, _INT, _INT, _P, _P),
-           (rows.data_ptr(), b_sel, rows.shape[1], kp.data_ptr(), means.data_ptr(),
-            group, take, lohi.data_ptr(), ss.data_ptr()), rows.device)
+    launch("select", "rgnir_q24_tail",
+           (_P, _I64, _I64, _I64, _I64, _I64, _P, _P, _INT, _INT, _P, _P),
+           (rows.data_ptr(), b_sel, rows.shape[1], nv, cols_live, bw, kp.data_ptr(),
+            means.data_ptr(), group, take, lohi.data_ptr(), ss.data_ptr()), rows.device)
     q24_tail.launches += 1
     return lohi[:, 0], lohi[:, 1], ss
 
@@ -483,13 +493,15 @@ def masked_median_sharded(
     live_rc: Optional[Sequence[LiveRC]] = None,
     quantized: bool = False,
     round0_hist: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    means: Optional[torch.Tensor] = None,
+    batched: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Exact median (numpy even-n semantics) of the valid elements of a
-    list of shards taken together: a 0-d float32 tensor on the first
-    shard's device. The shard list takes the place of the JAX package's
-    mesh axis: each radix round launches ``byte_hist`` on every shard in
-    its validity mode and sums the 256 counts (``psum``) before one cdf
-    pick; the prefix and the ranks stay on the device.
+    list of shards taken together, on the first shard's device. The shard
+    list takes the place of the JAX package's mesh axis: each radix round
+    launches ``byte_hist`` on every shard in its validity mode and sums the
+    256 counts (``psum``) before one cdf pick; the prefix and the ranks
+    stay on the device.
 
     Validity is positional, one entry per shard: ``n_live`` (the first
     ``n_live[i]`` elements of shard i, flattened row-major, are valid:
@@ -497,66 +509,82 @@ def masked_median_sharded(
     bw)`` block whose top-left ``rows_live x cols_live`` rectangle is
     valid: row and column padding; pass ``n_live=None``).
 
+    ``batched``: the first axis of every shard indexes R independent
+    medians over the same validity (the mosaic's kinds), each reduced over
+    the rest of its shard (``(R, bh, bw)`` shards with ``live_rc``); every
+    launch then serves all R. The result is ``(R,)``, else 0-d.
+
     ``quantized``: the q24 key, 3 rounds (2 with ``round0_hist``), exact
-    for index maps of uint8 bands; the value of the winning key and the
-    even-n successor are masked mins over the valid elements and
-    ``pmin``, in PyTorch ops as the JAX package keeps them in XLA. Else
-    the f32 key, 4 rounds, exact for any non-NaN data. ``round0_hist``:
-    the global (already summed) ``(256,)`` counts of the top key byte,
-    which save round 0's pass. Counterpart:
+    for index maps of uint8 bands; the value of the winning key, the
+    even-n successor and the sum of squares come from one ``q24_tail``
+    launch per shard in its validity mode, then ``pmin`` and ``psum``.
+    ``means`` (quantized only, shaped like the result): centres of the sum
+    of squares, which is then returned too: ``(median, sum over the valid
+    elements of (v - mean)^2)``. Else the f32 key, 4 rounds, exact for any
+    non-NaN data, the successor a masked min in PyTorch ops (the JAX
+    package's XLA tail). ``round0_hist``: the global (already summed)
+    top-key-byte counts, ``(256,)`` or ``(R, 256)``, which save round 0's
+    pass. Counterpart:
     ``rgnir_tpu/kernels/select.py:masked_median_pallas_sharded``.
     """
-    from rgnir_torch.parallel.mesh import psum
+    from rgnir_torch.parallel.mesh import pmin, psum
 
     if (n_live is None) == (live_rc is None):
         raise ValueError("pass n_live (prefix layout) or live_rc (rectangles), not both")
+    if means is not None and not quantized:
+        raise ValueError("means= requires quantized=True")
     shards = list(shards)
+    lead = 1 if batched else 0
     validity = []
     for i, v in enumerate(shards):
         if live_rc is not None:
-            if v.dim() != 2:
-                raise ValueError("live_rc requires (bh, bw) 2-D shards")
-            validity.append(dict(live_rc=live_rc[i], row_major_cols=v.shape[1]))
+            if v.dim() != 2 + lead:
+                raise ValueError(f"live_rc requires {'(R, bh, bw)' if batched else '(bh, bw)'} "
+                                 f"shards, got {tuple(v.shape)}")
+            validity.append(dict(live_rc=live_rc[i], row_major_cols=v.shape[-1]))
         else:
             validity.append(dict(n_valid=n_live[i]))
-    rows = [v.reshape(1, -1).to(torch.float32) for v in shards]
+    rows = [v.reshape(v.shape[0] if batched else 1, -1).to(torch.float32) for v in shards]
+    r = rows[0].shape[0]
     dev = rows[0].device
     key_mode = "q24" if quantized else "f32"
-    prefix = torch.zeros(1, dtype=torch.int64, device=dev)
-    rank = torch.full((1,), (n_valid_global - 1) // 2, dtype=torch.int64, device=dev)
+    prefix = torch.zeros(r, dtype=torch.int64, device=dev)
+    rank = torch.full((r,), (n_valid_global - 1) // 2, dtype=torch.int64, device=dev)
     eq_minus_rank = None
     shifts = SHIFTS[key_mode]
     for shift in shifts:
         if shift == shifts[0] and round0_hist is not None:
-            hist = round0_hist.reshape(1, 256).to(dev)
+            hist = round0_hist.reshape(r, 256).to(dev)
         else:
-            hist = psum([byte_hist(r, prefix.to(r.device), shift, key_mode, **val)
-                         for r, val in zip(rows, validity)])
+            hist = psum([byte_hist(x, prefix.to(x.device), shift, key_mode, **val)
+                         for x, val in zip(rows, validity)])
         sel, below, in_bin = cdf_pick(hist, rank)
         rank = rank - below
         prefix = prefix | (sel << shift)
         eq_minus_rank = in_bin - rank
-    valid = [_valid_elements(r, **val) for r, val in zip(rows, validity)]  # (1, live) each
-    inf = float("inf")
+    sumsq = None
     if quantized:
-        # key >= k  <=>  fl(v + 1) >= k * 2^-23 (the scale by 2^23 is exact,
-        # the conversion truncates, and k * 2^-23 is a float32 for k <=
-        # 2^24), so both mins compare v + 1 with a threshold instead of
-        # forming the keys. The least value of key >= kp is the least of
-        # the winning key (its bin holds the rank); no key exceeds the top.
-        lo_t = prefix[0].to(torch.float32) * (1.0 / Q24_SCALE)
-        hi_t = torch.where(prefix[0] == Q24_MAX, inf, (prefix[0] + 1).to(torch.float32)
-                           * (1.0 / Q24_SCALE))
-        u = [torch.add(v, 1.0) for v in valid]
-        lo = masked_min(valid, [w >= lo_t.to(w.device) for w in u], inf)[0]
-        if n_valid_global % 2 == 1:
-            return lo
-        nxt = masked_min(valid, [w >= hi_t.to(w.device) for w in u], inf)[0]
+        # one tail pass per shard: the least valid value of the winning key
+        # and of any higher key, and the centred sum of squares
+        kp = prefix.to(torch.int32)
+        mean_r = (torch.zeros(r, dtype=torch.float32, device=dev) if means is None
+                  else means.reshape(r).to(device=dev, dtype=torch.float32))
+        tails = [q24_tail(x, kp.to(x.device), mean_r.to(x.device), **val)
+                 for x, val in zip(rows, validity)]
+        lo, nxt = pmin([t[0] for t in tails]), pmin([t[1] for t in tails])
+        sumsq = psum([t[2] for t in tails])
     else:
-        lo = f32_from_ordered_u32(prefix)[0]
-        if n_valid_global % 2 == 1:
-            return lo
-        # the successor in float order, which is key order on non-NaN data
-        nxt = masked_min(valid, [v > lo.to(v.device) for v in valid], inf)[0]
-    hi = torch.where(eq_minus_rank[0] >= 2, lo, nxt)
-    return (lo + hi) * 0.5
+        lo = f32_from_ordered_u32(prefix)
+        if n_valid_global % 2 == 0:
+            # the successor in float order, which is key order on non-NaN data
+            valid = [_valid_elements(x, **val) for x, val in zip(rows, validity)]
+            nxt = masked_min(valid, [v > lo[:, None].to(v.device) for v in valid],
+                             float("inf"))
+    if n_valid_global % 2 == 1:
+        med = lo
+    else:
+        med = (lo + torch.where(eq_minus_rank >= 2, lo, nxt)) * 0.5
+    if not batched:
+        med = med[0]
+        sumsq = None if sumsq is None else sumsq[0]
+    return med if means is None else (med, sumsq)

@@ -143,13 +143,13 @@ def analyze_mosaic(
     with zeros; the pad rows are masked like the internal padding.
 
     ``impl``: ``"jnp"`` (plain PyTorch ops, the name kept from the JAX
-    package) or ``"kernel"`` (the hist, fused and byte_hist kernels in
-    their validity modes on each shard; on CPU tensors their plain
-    versions). The 1-D kernel body masks the padding positionally; the
-    2-D one runs the shards unmasked and subtracts the padding's exactly
-    known contribution (zero bytes white-balance to 0 and index to +0.0
-    because every lower bound is >= 0), with the rectangular-validity
-    select for the median.
+    package) or ``"kernel"`` (the hist, fused, byte_hist and q24_tail
+    kernels in their validity modes on each shard; on CPU tensors their
+    plain versions). The 1-D kernel body masks the padding positionally;
+    the 2-D one runs the shards unmasked and subtracts the padding's
+    exactly known contribution (zero bytes white-balance to 0 and index
+    to +0.0 because every lower bound is >= 0), with the
+    rectangular-validity select for the median and the variance.
     """
     if impl not in ("jnp", "kernel"):
         raise ValueError(f"impl must be 'jnp' or 'kernel', got {impl!r}")
@@ -255,24 +255,18 @@ def _gathered(outs) -> dict:
                 hist50=psum([o.hist50[0] for o in outs]), r0=psum([o.r0[0] for o in outs]))
 
 
-def _sumsq(views, means) -> torch.Tensor:
-    """Per kind, the sum over the shards of ``(v - mean)^2`` about the
-    global means, from one pass over each shard's ``(K, ...)`` valid
-    values: their own variances and means (``torch.var_mean``, Welford's)
-    combined exactly as ``n_i * (var_i + (mean_i - mean)^2)``, in float64."""
-    parts = []
-    for v in views:
-        n = v[0].numel()
-        if n:
-            var_i, mean_i = torch.var_mean(v, dim=tuple(range(1, v.dim())), correction=0)
-            dev = mean_i.double() - means.to(v.device).double()
-            parts.append(n * (var_i.double() + dev * dev))
-    return psum(parts)
-
-
-def _kernel_stats(g, views, kinds, n_valid, medians, mn, mx) -> MosaicStats:
+def _kernel_stats(outs, g, kinds, n_valid, mn, mx, **validity) -> MosaicStats:
+    """The global statistics of every kind from the fused partials ``g``
+    and one sharded select over the shards' ``(K, ...)`` index maps in
+    their validity mode (``n_live`` or ``live_rc``): its radix rounds and
+    its tail pass, which also gives the sum of squares about the global
+    mean (known from the partials) for the two-pass variance, as the JAX
+    bodies take it."""
     means = (g["sum"] / n_valid).to(torch.float32)
-    var = _sumsq(views, means) / n_valid
+    medians, sumsq = masked_median_sharded(
+        [o.idx[:, 0] for o in outs], n_valid, quantized=True, round0_hist=g["r0"],
+        means=means, batched=True, **validity)
+    var = sumsq / n_valid
     return {kind.value: _scalar_stats(mean=means[k], median=medians[k], var=var[k], mn=mn[k],
                                       mx=mx[k], above=g["above"][k], n_valid=n_valid,
                                       hist=g["hist50"][k])
@@ -282,18 +276,14 @@ def _kernel_stats(g, views, kinds, n_valid, medians, mn, mx) -> MosaicStats:
 def _analyze_kernel_1d(tiles, layout: _Layout, kinds, wb_cfg, with_renders) -> MosaicResult:
     """Row blocks through the kernels, the padding masked positionally:
     a shard's valid pixels are its first ``rows_live * W`` (hist's and
-    fused's ``n_valid``, byte_hist's prefix)."""
+    fused's ``n_valid``, byte_hist's and q24_tail's prefix)."""
     n_valid = layout.n_valid
     n_live = [rl * layout.w for rl, _ in layout.live()]
     hist = psum([channel_histograms(t, n_valid=n) for t, n in zip(tiles, n_live)])
     lo, hi = wb_bounds_from_histogram(hist, n=n_valid, cfg=wb_cfg)
     outs = _fused_shards(tiles, lo, hi, kinds, with_renders, n_live)
     g = _gathered(outs)
-    medians = [masked_median_sharded([o.idx[k, 0] for o in outs], n_valid, n_live,
-                                     quantized=True, round0_hist=g["r0"][k])
-               for k in range(len(kinds))]
-    views = [o.idx[:, 0].reshape(len(kinds), -1)[:, :n] for o, n in zip(outs, n_live)]
-    stats = _kernel_stats(g, views, kinds, n_valid, medians, g["min"], g["max"])
+    stats = _kernel_stats(outs, g, kinds, n_valid, g["min"], g["max"], n_live=n_live)
     wb, indices, renders = _pixel_outputs(outs, layout, kinds, with_renders)
     return MosaicResult(wb=wb, indices=indices, renders=renders, stats=stats)
 
@@ -305,8 +295,10 @@ def _analyze_kernel_2d(tiles, layout: _Layout, kinds, wb_cfg, with_renders) -> M
     ``pad_total`` counts in bin 0 of each channel histogram, in byte 128
     of the round-0 counts and in bin 25 of the 50-bin histogram, and adds
     nothing to the sums (nor to the coverage count while 0 > threshold is
-    false). Min, max and the variance are taken over each block's valid
-    rectangle, and the median by the rectangular-validity select."""
+    false; the port also subtracts the padding from the coverage count of
+    a kind whose threshold is negative, which the JAX kernel body does
+    not). Min and max are taken over each block's valid rectangle, the
+    median and the variance by the rectangular-validity select."""
     n_valid, pad_total = layout.n_valid, layout.pad_total
     live = layout.live()
     hist = psum([channel_histograms(t) for t in tiles])
@@ -319,13 +311,10 @@ def _analyze_kernel_2d(tiles, layout: _Layout, kinds, wb_cfg, with_renders) -> M
     for k, kind in enumerate(kinds):
         if 0.0 > kind.coverage_threshold:
             g["above"][k] -= pad_total
-    medians = [masked_median_sharded([o.idx[k, 0] for o in outs], n_valid, None, live_rc=live,
-                                     quantized=True, round0_hist=g["r0"][k])
-               for k in range(len(kinds))]
     views = [o.idx[:, 0, :rl, :cl] for o, (rl, cl) in zip(outs, live)]
     inf = torch.full((len(kinds),), float("inf"), device=layout.devices[0])
     mn = pmin([v.amin(dim=(1, 2)) if v[0].numel() else inf.to(v.device) for v in views])
     mx = pmax([v.amax(dim=(1, 2)) if v[0].numel() else -inf.to(v.device) for v in views])
-    stats = _kernel_stats(g, views, kinds, n_valid, medians, mn, mx)
+    stats = _kernel_stats(outs, g, kinds, n_valid, mn, mx, n_live=None, live_rc=live)
     wb, indices, renders = _pixel_outputs(outs, layout, kinds, with_renders)
     return MosaicResult(wb=wb, indices=indices, renders=renders, stats=stats)

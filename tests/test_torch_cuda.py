@@ -26,6 +26,7 @@ from rgnir_torch.ops.wb import wb_bounds_from_histogram
 from rgnir_torch.pipeline.dispatch import analyze_image_auto
 from rgnir_torch.pipeline.fused import analyze_image
 
+import chip_smoke
 from chip_smoke import smooth_field
 from torch_parity import IDX_ATOL, MEAN_ATOL, VAR_ATOL
 
@@ -249,7 +250,7 @@ def test_cuda_mosaic_kernel_matches_jnp(cuda, shape, axes):
     before = {k: w.launches for k, w in tk.WRAPPERS.items()}
     got = analyze_mosaic(mosaic, kinds=KINDS, mesh=mesh, with_renders=True, impl="kernel")
     launched = {k for k, w in tk.WRAPPERS.items() if w.launches > before[k]}
-    assert launched == {"hist", "fused", "byte_hist"}
+    assert launched == {"hist", "fused", "byte_hist", "q24_tail"}
     want = analyze_mosaic(mosaic, kinds=KINDS, mesh=mesh, with_renders=True, impl="jnp")
     one = analyze_image_auto(mosaic, kinds=KINDS)
     assert torch.equal(got.wb[:203, :171], want.wb[:203, :171])
@@ -261,3 +262,39 @@ def test_cuda_mosaic_kernel_matches_jnp(cuda, shape, axes):
                 assert torch.equal(getattr(g, field), getattr(w, field)), (k, field)
             assert float((g.mean - w.mean).abs()) <= MEAN_ATOL
             assert float((g.std ** 2 - w.std ** 2).abs()) <= VAR_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("validity", [dict(n_valid=0), dict(n_valid=1), dict(n_valid=16150),
+                                      dict(n_valid=97 * 333 - 1), dict(live_rc=(97, 300)),
+                                      dict(live_rc=(96, 330)), dict(live_rc=(0, 333)),
+                                      dict(live_rc=(50, 1))], ids=str)
+def test_cuda_q24_tail_validity_matches_plain(cuda, validity):
+    """The tail's prefix and rectangle modes (the mosaic's shards)."""
+    rng = np.random.default_rng(20)
+    a = rng.integers(0, 256, (3, 97 * 333)).astype(np.float32)
+    b = rng.integers(0, 256, (3, 97 * 333)).astype(np.float32)
+    rows = torch.from_numpy(np.clip((a - b) / (a + b + np.float32(1e-10)), -1, 1)).to(cuda)
+    kp = q24_keys(rows)[:, 5].to(torch.int32)
+    means = rows.mean(dim=1)
+    kw = dict(validity, row_major_cols=333) if "live_rc" in validity else validity
+    got = tk.q24_tail(rows, kp, means, **kw)
+    want = tselect.q24_tail_plain(rows, kp, means, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert float((got[2] - want[2]).abs().max()) / rows.shape[1] <= VAR_ATOL
+
+
+@pytest.mark.cuda
+def test_cuda_many_kinds_match_plain(cuda):
+    """9 and 17 kinds through fused_analyze, analyze_image_auto and both
+    mosaic kernel bodies: chip_smoke.py's phase, one fused launch per
+    group of at most 8 kinds."""
+    chip_smoke.many_kinds_checks(torch, tk.WRAPPERS)
+
+
+@pytest.mark.cuda
+def test_cuda_frame_above_2_29_pixels(cuda):
+    """A frame of 2^29 + 16,381 pixels: hist and fused against their plain
+    versions in bands, and the mosaic's kernel body on one shard against
+    four: chip_smoke.py's phase."""
+    chip_smoke.big_frame_checks(torch, tk.WRAPPERS, "")

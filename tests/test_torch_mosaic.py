@@ -7,7 +7,9 @@ mosaic: both bodies (``impl="jnp"`` and ``impl="kernel"``, whose
 kernels take their plain versions on the CPU and run as Pallas in
 interpret mode on the JAX side), on 1-D meshes of 8 and 4 shards and on
 (4, 2) and (2, 2) meshes, a row count that leaves padding on every
-mesh, pre-padded rows (``valid_rows``) and a registered custom kind.
+mesh, pre-padded rows (``valid_rows``) and registered custom kinds, one
+of them with a negative coverage threshold (where the JAX 2-D kernel
+body counts the padding and the port does not).
 Tolerances are tests/torch_parity.py's: exact bytes, renders,
 histograms, min, max, coverage count and median; index maps within
 1.2e-7; mean within 1e-5; variance within 1e-4.
@@ -26,7 +28,7 @@ from rgnir_torch.kernels import WRAPPERS
 from rgnir_torch.parallel import analyze_mosaic, local_mesh, make_mesh, pmax, pmin, psum
 from rgnir_torch.pipeline.dispatch import analyze_image_auto
 
-from torch_parity import IDX_ATOL, assert_stats_match, host
+from torch_parity import COVERAGE_RTOL, IDX_ATOL, assert_stats_match, host
 
 KINDS = ("NDVI", "GNDVI", "NDWI")
 ROWS = 8 * 4 + 3  # 8 * n + 3 rows: padding on every mesh below
@@ -99,6 +101,41 @@ def test_mosaic_custom_kind_matches_jax(impl):
     want = j_analyze_mosaic(mosaic, kinds=("TORCH_MOSAIC_ND",), mesh=j_mesh, impl=impl,
                             with_renders=True)
     _assert_mosaic_matches(got, want, ("TORCH_MOSAIC_ND",))
+
+
+def test_mosaic_2d_negative_threshold_coverage():
+    """A kind whose coverage threshold is negative, on a padded (2, 2)
+    mesh: the port's 2-D kernel body equals the JAX package's 2-D jnp
+    body, because it takes the padding (index +0.0, above the threshold)
+    out of the coverage count. The JAX 2-D kernel body does not
+    (rgnir_tpu/parallel/mosaic.py, "0 > thr false"): its coverage is over
+    by exactly the padding's share, pad_total / n_valid * 100. That is a
+    fault of the reference, pinned here."""
+    spec = dict(coverage_threshold=-0.5, cmap_name="RdYlBu", feature_name="Dryrun")
+    j_register_index("TORCH_MOSAIC_NEG", (0, 1), **spec)
+    register_index("TORCH_MOSAIC_NEG", (0, 1), **spec)
+    kinds = ("NDVI", "TORCH_MOSAIC_NEG")
+    mosaic = _mosaic(9, rows=ROWS, cols=95)
+    mesh, j_mesh = _meshes("2x2")
+    got = analyze_mosaic(mosaic, kinds=kinds, mesh=mesh, impl="kernel", with_renders=True)
+    want = j_analyze_mosaic(mosaic, kinds=kinds, mesh=j_mesh, impl="jnp", with_renders=True)
+    _assert_mosaic_matches(got, want, kinds)
+    j_kernel = j_analyze_mosaic(mosaic, kinds=kinds, mesh=j_mesh, impl="kernel")
+    n_valid = ROWS * 95
+    pad_total = 36 * 96 - n_valid
+    assert pad_total > 0
+
+    def count(stats):
+        return round(float(stats.coverage_pct) * n_valid / 100)
+
+    neg = "TORCH_MOSAIC_NEG"
+    assert count(j_kernel.stats[neg]) - count(want.stats[neg]) == pad_total
+    np.testing.assert_allclose(float(j_kernel.stats[neg].coverage_pct),
+                               float(want.stats[neg].coverage_pct) + pad_total / n_valid * 100,
+                               rtol=COVERAGE_RTOL)
+    assert count(got.stats[neg]) == count(want.stats[neg])
+    # a kind whose threshold is not negative: the padding never counted
+    assert count(j_kernel.stats["NDVI"]) == count(want.stats["NDVI"])
 
 
 @pytest.mark.parametrize("impl", ["jnp", "kernel"])

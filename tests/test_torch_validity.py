@@ -10,7 +10,12 @@ medians: ``masked_median_sharded`` against ``masked_median_pallas_sharded``
 under ``shard_map``, and the shard-list ``masked_median`` of the ops
 layer against the JAX one with a mesh axis. Counts, min, max, bytes,
 renders and medians are exact; index maps within 1.2e-7 and means within
-1e-5 (tests/torch_parity.py).
+1e-5 (tests/torch_parity.py). q24_tail's validity modes: the prefix
+against the Pallas tail in interpret mode, the rectangle against numpy;
+its mins exact and its sum of squares within 1e-5 relative (float32
+sums in another order). The sharded medians' ``means=`` sum of squares
+against JAX's masked two-pass sum under ``shard_map``, within 1e-5
+relative.
 """
 
 import jax
@@ -22,7 +27,12 @@ from jax.sharding import PartitionSpec as P
 
 from rgnir_tpu.kernels.fused import S_ABOVE, S_HIST, S_MAX, S_MIN, S_SUM, fused_analyze_pallas
 from rgnir_tpu.kernels.hist import planar_histograms_pallas
-from rgnir_tpu.kernels.select import _byte_hist, _pack_rows, masked_median_pallas_sharded
+from rgnir_tpu.kernels.select import (
+    _byte_hist,
+    _pack_rows,
+    _q24_tail,
+    masked_median_pallas_sharded,
+)
 from rgnir_tpu.ops.select import adjacent_order_statistics as j_adjacent
 from rgnir_tpu.ops.select import masked_median as j_masked_median
 from rgnir_tpu.ops.select import radix_order_statistic as j_radix_order_statistic
@@ -46,6 +56,7 @@ KINDS = tuple(IndexKind.parse(k) for k in ("NDVI", "GNDVI", "NDWI"))
 H, W = 37, 90  # 3330 pixels: rows and 4-pixel words end mid-way
 N_VALID = [0, 1, 1667, H * W - 1]
 BLOCK_R = 8
+SUMSQ_RTOL = 1e-5
 
 
 def _frame(seed, h=H, w=W):
@@ -148,16 +159,54 @@ def test_byte_hist_validity_matches_pallas(key_mode, shift, validity):
     np.testing.assert_array_equal(host(got), host(want))
 
 
+@pytest.mark.parametrize("validity", VALIDITY, ids=str)
+def test_q24_tail_validity_matches_reference(validity):
+    """The tail over each row's valid elements: a prefix against the
+    Pallas tail (``_q24_tail_kernel``'s ``n_valid`` mode), a rectangle
+    against numpy on the rectangle's elements. Row 0's key is that of its
+    first element, row 1's of an element in the middle, so both mins are
+    taken whenever those elements are valid."""
+    rows = np.stack([_index_map(4, H, W), _index_map(5, H, W)]).reshape(2, -1)
+    keys = host(q24_keys(torch.from_numpy(rows)))
+    kp = np.array([keys[0, 0], keys[1, 1700]], np.int32)
+    means = np.float32([0.05, -0.1])
+    kw = dict(validity, row_major_cols=W) if "live_rc" in validity else validity
+    lo, nxt, ss = tselect.q24_tail(torch.from_numpy(rows), torch.from_numpy(kp),
+                                   torch.from_numpy(means), **kw)
+    if "n_valid" in validity:
+        want = _q24_tail(_pack_rows(jnp.asarray(rows), BLOCK_R), jnp.asarray(kp),
+                         jnp.asarray(means), validity["n_valid"], BLOCK_R, True,
+                         with_sumsq=True)
+        want = [host(w) for w in want]
+    else:
+        rl, cl = validity["live_rc"]
+        valid = rows.reshape(2, H, W)[:, :rl, :cl].reshape(2, -1)
+        vkeys = keys.reshape(2, H, W)[:, :rl, :cl].reshape(2, -1)
+        want = [np.array([np.where(op(vkeys[i], kp[i]), valid[i], np.inf).min(initial=np.inf)
+                          for i in range(2)], np.float32)
+                for op in (np.equal, np.greater)]
+        want.append(((valid.astype(np.float64) - means[:, None]) ** 2).sum(axis=1))
+    np.testing.assert_array_equal(host(lo), want[0])
+    np.testing.assert_array_equal(host(nxt), want[1])
+    np.testing.assert_allclose(host(ss), want[2], rtol=SUMSQ_RTOL, atol=0)
+    if validity.get("n_valid", 1) and min(validity.get("live_rc", (1, 1))):
+        assert np.isfinite(host(lo)[0])  # element 0 is valid: its own key's min
+
+
 def test_byte_hist_validity_arguments_checked():
     rows, prefix = torch.zeros(1, 12), torch.zeros(1, dtype=torch.int64)
-    with pytest.raises(ValueError):
-        tselect.byte_hist(rows, prefix, 16, n_valid=3, live_rc=(1, 1), row_major_cols=4)
-    with pytest.raises(ValueError):
-        tselect.byte_hist(rows, prefix, 16, live_rc=(1, 1), row_major_cols=5)
-    with pytest.raises(ValueError):
-        tselect.byte_hist(rows, prefix, 16, live_rc=(4, 1), row_major_cols=4)
-    with pytest.raises(ValueError):
-        tselect.byte_hist(rows, prefix, 16, n_valid=13)
+    for fn in (tselect.byte_hist, tselect.q24_tail):
+        args = (rows, prefix, 16) if fn is tselect.byte_hist else (rows, prefix, torch.zeros(1))
+        with pytest.raises(ValueError):
+            fn(*args, n_valid=3, live_rc=(1, 1), row_major_cols=4)
+        with pytest.raises(ValueError):
+            fn(*args, live_rc=(1, 1), row_major_cols=5)
+        with pytest.raises(ValueError):
+            fn(*args, live_rc=(4, 1), row_major_cols=4)
+        with pytest.raises(ValueError):
+            fn(*args, n_valid=13)
+        with pytest.raises(ValueError):
+            fn(*args, row_major_cols=4)
 
 
 # --- the sharded medians --------------------------------------------------------
@@ -171,51 +220,120 @@ def _shards_1d(seed, n_dev=4, bh=10, w=W, h=H):
     return full, n_live
 
 
+def _j_sumsq(x, mask, mean, axes):
+    """The JAX bodies' two-pass sum of squares: masked, about the global
+    mean, summed over the mesh axes."""
+    return jax.lax.psum(jnp.sum(jnp.square(x - mean) * mask.astype(jnp.float32)), axes)
+
+
 @pytest.mark.parametrize("quantized,with_r0", [(True, True), (True, False), (False, False)])
 @pytest.mark.parametrize("rows", [H, H - 1])
 def test_masked_median_sharded_prefix_matches_pallas(quantized, with_r0, rows):
+    """With ``quantized``, also the sum of squares about a given mean
+    (``means=``, the tail pass's prefix mode) against JAX's masked
+    two-pass sum."""
     full, n_live = _shards_1d(6, h=rows)
     n = rows * W
     valid = full[:rows].reshape(-1)
+    mean = np.float32(valid.mean(dtype=np.float64))
     r0 = None
     if with_r0:
         r0 = np.bincount(host(q24_keys(torch.from_numpy(valid))) >> 16, minlength=256)
         r0 = r0.astype(np.int32)
-    mesh = jax.make_mesh((4,), ("d",))
-    fn = jax.jit(jax.shard_map(
-        lambda x, nl: masked_median_pallas_sharded(
+
+    def body(x, nl):
+        med = masked_median_pallas_sharded(
             x, n, nl[0], "d", quantized=quantized,
-            round0_hist=None if r0 is None else jnp.asarray(r0)),
-        mesh=mesh, in_specs=(P("d"), P("d")), out_specs=P(), check_vma=False))
-    want = fn(jnp.asarray(full), jnp.asarray(np.array(n_live, np.int32)))
+            round0_hist=None if r0 is None else jnp.asarray(r0))
+        pos = jnp.arange(x.size, dtype=jnp.int32).reshape(x.shape)
+        return med, _j_sumsq(x, pos < nl[0], mean, "d")
+
+    mesh = jax.make_mesh((4,), ("d",))
+    fn = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(P("d"), P("d")),
+                               out_specs=(P(), P()), check_vma=False))
+    want, want_ss = fn(jnp.asarray(full), jnp.asarray(np.array(n_live, np.int32)))
     shards = [torch.from_numpy(s) for s in np.split(full, 4)]
-    got = tselect.masked_median_sharded(
-        shards, n, n_live, quantized=quantized,
-        round0_hist=None if r0 is None else torch.from_numpy(r0))
+    kw = dict(quantized=quantized, round0_hist=None if r0 is None else torch.from_numpy(r0))
+    got = tselect.masked_median_sharded(shards, n, n_live, **kw)
     assert float(got) == float(want) == float(np.median(valid))
+    if quantized:
+        got2, ss = tselect.masked_median_sharded(shards, n, n_live, means=torch.tensor(mean),
+                                                 **kw)
+        assert float(got2) == float(got)
+        np.testing.assert_allclose(float(ss), float(want_ss), rtol=SUMSQ_RTOL, atol=0)
+
+
+def _shards_2d(seed, h, w):
+    """The (2, 2) blocks of one index map of h x w padded to even sides,
+    and each block's live rectangle."""
+    bh, bw = -(-h // 2), -(-w // 2)
+    full = np.zeros((2 * bh, 2 * bw), np.float32)
+    full[:h, :w] = _index_map(seed, h, w)
+    live = [(min(max(h - r * bh, 0), bh), min(max(w - c * bw, 0), bw))
+            for r in range(2) for c in range(2)]
+    blocks = [np.ascontiguousarray(full[r * bh:(r + 1) * bh, c * bw:(c + 1) * bw])
+              for r in range(2) for c in range(2)]
+    return full, blocks, live
 
 
 @pytest.mark.parametrize("quantized", [True, False])
 @pytest.mark.parametrize("h,w", [(H, W), (H - 1, W - 1)])
 def test_masked_median_sharded_rect_matches_pallas(quantized, h, w):
-    """2-D shards with row and column padding (live_rc)."""
-    bh, bw = -(-h // 2), -(-w // 2)
-    full = np.zeros((2 * bh, 2 * bw), np.float32)
-    full[:h, :w] = _index_map(7, h, w)
-    live = [(min(max(h - r * bh, 0), bh), min(max(w - c * bw, 0), bw))
-            for r in range(2) for c in range(2)]
-    mesh = jax.make_mesh((2, 2), ("dr", "dc"))
-    fn = jax.jit(jax.shard_map(
-        lambda x, lv: masked_median_pallas_sharded(
+    """2-D shards with row and column padding (live_rc); with
+    ``quantized``, also the sum of squares about a given mean (the tail
+    pass's rectangle mode) against JAX's masked two-pass sum."""
+    full, blocks, live = _shards_2d(7, h, w)
+    bh, bw = blocks[0].shape
+    mean = np.float32(full[:h, :w].mean(dtype=np.float64))
+
+    def body(x, lv):
+        med = masked_median_pallas_sharded(
             x, h * w, None, ("dr", "dc"), live_rc=(lv[0, 0, 0], lv[0, 0, 1]),
-            quantized=quantized),
-        mesh=mesh, in_specs=(P("dr", "dc"), P("dr", "dc")), out_specs=P(),
-        check_vma=False))
-    want = fn(jnp.asarray(full), jnp.asarray(np.array(live, np.int32).reshape(2, 2, 2)))
-    shards = [torch.from_numpy(np.ascontiguousarray(full[r * bh:(r + 1) * bh, c * bw:(c + 1) * bw]))
-              for r in range(2) for c in range(2)]
+            quantized=quantized)
+        mask = (jnp.arange(bh)[:, None] < lv[0, 0, 0]) & (jnp.arange(bw)[None, :] < lv[0, 0, 1])
+        return med, _j_sumsq(x, mask, mean, ("dr", "dc"))
+
+    mesh = jax.make_mesh((2, 2), ("dr", "dc"))
+    fn = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(P("dr", "dc"), P("dr", "dc")),
+                               out_specs=(P(), P()), check_vma=False))
+    want, want_ss = fn(jnp.asarray(full), jnp.asarray(np.array(live, np.int32).reshape(2, 2, 2)))
+    shards = [torch.from_numpy(b) for b in blocks]
     got = tselect.masked_median_sharded(shards, h * w, None, live_rc=live, quantized=quantized)
     assert float(got) == float(want) == float(np.median(full[:h, :w]))
+    if quantized:
+        got2, ss = tselect.masked_median_sharded(shards, h * w, None, live_rc=live,
+                                                 quantized=True, means=torch.tensor(mean))
+        assert float(got2) == float(got)
+        np.testing.assert_allclose(float(ss), float(want_ss), rtol=SUMSQ_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("layout", ["prefix", "rect"])
+def test_masked_median_sharded_batched_rows(layout):
+    """``batched=True``: each shard's first axis holds independent medians
+    (the mosaic's kinds), every launch serving them all, equal to one call
+    per row."""
+    if layout == "prefix":
+        rows = [_shards_1d(seed, h=H - 1) for seed in (11, 12, 13)]
+        per_row = [np.split(full, 4) for full, _ in rows]
+        kw = dict(n_live=rows[0][1])
+        n = (H - 1) * W
+    else:
+        rows = [_shards_2d(seed, H - 1, W - 1) for seed in (11, 12, 13)]
+        per_row = [blocks for _, blocks, _ in rows]
+        kw = dict(n_live=None, live_rc=rows[0][2])
+        n = (H - 1) * (W - 1)
+    shards = [torch.from_numpy(np.stack([blocks[i] for blocks in per_row])) for i in range(4)]
+    means = torch.tensor([0.1, -0.2, 0.0])
+    med, ss = tselect.masked_median_sharded(shards, n, quantized=True, means=means,
+                                            batched=True, **kw)
+    assert med.shape == ss.shape == (3,)
+    for r, blocks in enumerate(per_row):
+        one, one_ss = tselect.masked_median_sharded([torch.from_numpy(b) for b in blocks], n,
+                                                    quantized=True, means=means[r], **kw)
+        assert float(med[r]) == float(one)
+        assert float(ss[r]) == float(one_ss)
+    np.testing.assert_array_equal(
+        host(tselect.masked_median_sharded(shards, n, batched=True, **kw)), host(med))
 
 
 def test_masked_median_sharded_needs_one_layout():
@@ -224,6 +342,10 @@ def test_masked_median_sharded_needs_one_layout():
         tselect.masked_median_sharded(shards, 6, None)
     with pytest.raises(ValueError):
         tselect.masked_median_sharded(shards, 6, [6], live_rc=[(2, 3)])
+    with pytest.raises(ValueError, match="quantized"):
+        tselect.masked_median_sharded(shards, 6, [6], means=torch.zeros(()))
+    with pytest.raises(ValueError, match="live_rc"):
+        tselect.masked_median_sharded(shards, 6, None, live_rc=[(2, 3)], batched=True)
 
 
 @pytest.mark.parametrize("n_valid_rows", [H, H - 2])

@@ -153,10 +153,10 @@ def fused_copies(c50, cr0, by):
          f"          atomicAdd(&s_h50[(k * kBins + min(bin, kBins - 1)) * {c50} + ({by} & ({c50} - 1))], 1);"),
         (FUSED_ADDR0,
          f"        if (count_r0) atomicAdd(&s_r0[(k * kBytes + byte) * {cr0} + ({by} & ({cr0} - 1))], 1);"),
-        ("      if (s_h50[i]) atomicAdd(hist50 + b * nk * kBins + i, s_h50[i]);",
+        ("      if (s_h50[i]) atomicAdd(hist50 + b * p.kstride * kBins + i, s_h50[i]);",
          f"""      int s = 0;
       for (int c = 0; c < {c50}; ++c) s += s_h50[i * {c50} + ((c + lane) & ({c50} - 1))];
-      if (s) atomicAdd(hist50 + b * nk * kBins + i, s);"""),
+      if (s) atomicAdd(hist50 + b * p.kstride * kBins + i, s);"""),
         ("    const int s = s_r0[at] + ((i & 255) == 255 ? s_r0[at + 1] : 0);",
          f"""    int s = 0;
     for (int c = 0; c < {cr0} * ((i & 255) == 255 ? 2 : 1); ++c) s += s_r0[at * {cr0} + c];"""),
