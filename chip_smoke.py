@@ -28,7 +28,15 @@ Phases, each reported on its own line:
    rectangles (among them fewer live columns than the block's and no
    live row), and q24_tail with the same prefixes and rectangles, each
    against its plain version and timed beside its default mode in the
-   same call;
+   same call; then q24_onepass on the (a1) path's rows (the two canonical
+   kinds of 8 x 1024^2 frames) of uniform frames, the smooth field and a
+   constant frame (every element in one bin), with ``take_prefix``, with
+   ``n_valid`` prefixes of 1, 2, 524,289 and 1,048,575, and on rows of
+   4999 elements, against its plain version (also over more rows than
+   one launch's tables hold, and on a second stream), each input timed
+   and the ``n_valid`` mode timed in turns with the default, and
+   ``masked_median_rows(n_valid=...)`` with the one-pass kernel against
+   its 3-pass select (its launches counted);
 4. paths, each with every kernel's launch count set to 0 just before it
    and read just after, and held to the path's own set of kernels:
    ``analyze_image_auto`` on 8 x 1024^2 x 3 frames with NDVI, GNDVI and
@@ -389,14 +397,15 @@ def kernel_checks(torch, timer, rates, shape, timed, skip=0):
         plain_ms=timer.kernel(lambda: ks.byte_hist_plain(rows, f32_prefixes[16], 16, "f32")),
         library_ms=None, bytes=sel_bytes, bound=bound(sel_bytes, 5 * nc * px),
         max_abs_err=0.0)
-    # q24_onepass: the selected values read once; about 18 operations per
-    # element over its three sweeps (the key twice more, the two masked
-    # compares of the rounds, the tail's two mins and centred square). Its
+    # q24_onepass: the selected values read once, in one sweep; about 12
+    # operations per element (the key's add, multiply, conversion and min,
+    # the centred square's subtract and multiply-add, the two compares
+    # against the round-0 byte and the least value above it). Its
     # yardstick is torch.quantile's median of the same rows.
     records["q24_onepass"] = dict(
         ms=timer.kernel(lambda: ks.q24_onepass(rows, sel0, rank1, means)),
         plain_ms=timer.kernel(lambda: ks.q24_onepass_plain(rows, sel0, rank1, means)),
-        library_ms=quantile_ms, bytes=sel_bytes, bound=bound(sel_bytes, 18 * nc * px),
+        library_ms=quantile_ms, bytes=sel_bytes, bound=bound(sel_bytes, 12 * nc * px),
         max_abs_err=onepass_err)
     select_ms = timer.kernel(lambda: ks.masked_median_rows(rows, r0c, means))
     onepass_select_ms = timer.kernel(
@@ -703,6 +712,179 @@ def validity_checks(torch, timer, rates, shape, smi):
     return records
 
 
+# --- phase 3c: the one-pass select's inputs and its n_valid mode ---------------
+
+ONEPASS_ODD_N = 4999  # a row length that is not a multiple of 4
+ONEPASS_PATH_N_VALID = ("q24_onepass",)
+
+
+def onepass_setup(torch, rows, n_valid=None):
+    """The one-pass select's inputs for ``(R, n)`` rows: the round-0 pick
+    from the top byte's counts over each row's first ``n_valid`` elements
+    (``masked_median_rows``'s rank), and those elements' means."""
+    from rgnir_torch.kernels import select as ks
+    from rgnir_torch.ops.select import q24_keys
+
+    nv = rows.shape[1] if n_valid is None else n_valid
+    valid = rows[:, :nv]
+    r0 = torch.stack([torch.bincount(q24_keys(v) >> 16, minlength=256)
+                      for v in valid]).to(torch.int32)
+    rank = torch.full((rows.shape[0],), (nv - 1) // 2, dtype=torch.int64, device="cuda")
+    sel0, rank1 = ks.round0_pick(r0, rank)
+    means = valid.mean(dim=1) if nv else torch.zeros(rows.shape[0], device="cuda")
+    return r0, sel0, rank1, means
+
+
+def check_onepass(torch, what, rows, take_prefix=None, n_valid=None):
+    """q24_onepass against q24_onepass_plain on the same inputs: lo, nxt
+    and eq_minus_rank exact, the variance within VAR_ATOL. Returns the
+    variance error."""
+    from rgnir_torch.kernels import select as ks
+
+    sel_rows = ks._selected(rows, take_prefix)
+    _, sel0, rank1, means = onepass_setup(torch, sel_rows, n_valid)
+    got = ks.q24_onepass(rows, sel0, rank1, means, take_prefix, n_valid=n_valid)
+    want = ks.q24_onepass_plain(rows, sel0, rank1, means, take_prefix, n_valid=n_valid)
+    for i, field in ((0, "lo"), (1, "nxt"), (3, "eq_minus_rank")):
+        check_equal(torch, f"q24_onepass.{field} {what}", got[i], want[i])
+    nv = max(rows.shape[1] if n_valid is None else n_valid, 1)
+    return check_close(f"q24_onepass.var {what}", got[2] / nv, want[2] / nv, VAR_ATOL)
+
+
+def check_onepass_table_rows(torch):
+    """q24_onepass over more selected rows than one launch's tables hold
+    (``ONEPASS_TABLE_ROWS``), plain and with ``take_prefix``: one launch
+    per that many rows, each at its offset; then on a second stream, which
+    waits for the tables' last launch on the first, and back. Returns
+    the selected rows and the launches of one call."""
+    from rgnir_torch.kernels import select as ks
+
+    b_sel = 2 * ks.ONEPASS_TABLE_ROWS + 2
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    a, c = (torch.randint(0, 256, (b_sel // 2 * 3, 1000), generator=g, device="cuda",
+                          dtype=torch.float32) for _ in range(2))
+    rows = ((a - c) / (a + c + 1e-10)).clamp(-1.0, 1.0)
+    check_onepass(torch, f"{b_sel} of {tuple(rows.shape)} take (3, 2)", rows, (3, 2))
+    more = rows[:b_sel]
+    _, sel0, rank1, means = onepass_setup(torch, more)
+    launches = ks.q24_onepass.launches
+    ks.q24_onepass(more, sel0, rank1, means)
+    launches = ks.q24_onepass.launches - launches
+    require(launches == -(-b_sel // ks.ONEPASS_TABLE_ROWS),
+            f"q24_onepass over {b_sel} rows: {launches} launches")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        check_onepass(torch, f"{tuple(more.shape)} on a second stream", more)
+    torch.cuda.current_stream().wait_stream(side)
+    check_onepass(torch, f"{tuple(more.shape)} back on the first stream", more)
+    return b_sel, launches
+
+
+def onepass_inputs(torch, shape):
+    """The (a1) path's select rows for ``(B, H, W)`` frames, ``(2B, H*W)``:
+    the two canonical kinds' index maps of uniform frames and of the smooth
+    field, and constant rows (every element in one bin)."""
+    from rgnir_torch.config import IndexKind
+    from rgnir_torch.kernels import fused as kf
+    from rgnir_torch.kernels import hist as kh
+    from rgnir_torch.ops.wb import wb_bounds_from_histogram
+
+    b, h, w = shape
+    kinds = tuple(IndexKind.parse(k) for k in KINDS[:2])
+
+    def index_rows(img):
+        lo, hi = wb_bounds_from_histogram(kh.channel_histograms(img), n=h * w)
+        out = kf.fused_analyze(img, lo, hi, kinds, True, False, (True, True))
+        return out.idx.reshape(2 * b, h * w)
+
+    return {"uniform": index_rows(uniform_frames(torch, shape)),
+            "smooth": index_rows(torch.as_tensor(smooth_field(shape), device="cuda")),
+            "constant": torch.full((2 * b, h * w), 0.2890625, device="cuda")}
+
+
+def onepass_checks(torch, timer, rates, shape, wrappers, smi):
+    """q24_onepass against its plain version at the (a1) path's shape (the
+    two canonical kinds' index maps of 8 x 1024^2 frames) on uniform
+    frames, on the smooth field and on a constant frame (every element in
+    one bin), with ``take_prefix``, with ``n_valid`` prefixes (odd and
+    even, mid-row and mid-word) and on rows of 4999 elements; each input
+    timed, the ``n_valid`` mode in turns with the default;
+    ``masked_median_rows(n_valid=...)`` with the one-pass kernel against
+    its 3-pass select; the launches of ``masked_median_rows(onepass=True,
+    n_valid=...)``. Returns the ``kernels`` line's mode record and those
+    launches."""
+    from rgnir_torch.kernels import select as ks
+
+    b, h, w = shape
+    hw = h * w
+    inputs = onepass_inputs(torch, shape)
+    counts = (1, 2, hw // 2 + 1, hw - 1)
+    var_err = 0.0
+    for label, rows in inputs.items():
+        var_err = max(var_err, check_onepass(torch, f"{label} {shape}", rows))
+        var_err = max(var_err, check_onepass(torch, f"{label} {shape} take (2, 1)", rows, (2, 1)))
+        for nv in counts:
+            var_err = max(var_err, check_onepass(torch, f"{label} {shape} n_valid={nv}", rows,
+                                                 n_valid=nv))
+    odd = inputs["uniform"][:6, :ONEPASS_ODD_N].contiguous()
+    for kw in (dict(), dict(take_prefix=(3, 2)), dict(n_valid=ONEPASS_ODD_N - 1),
+               dict(n_valid=ONEPASS_ODD_N // 2)):
+        var_err = max(var_err, check_onepass(torch, f"(6, {ONEPASS_ODD_N}) {kw}", odd, **kw))
+    log(f"kernel q24_onepass {shape}: matches its plain version on uniform, smooth and constant "
+        f"rows, with take_prefix (2, 1), with n_valid in {counts}, and on (6, {ONEPASS_ODD_N}) "
+        f"rows (var err up to {var_err})")
+    b_sel, launches = check_onepass_table_rows(torch)
+    log(f"kernel q24_onepass: matches its plain version over {b_sel} selected rows ({launches} "
+        f"launches of at most {ks.ONEPASS_TABLE_ROWS} rows), with take_prefix, and on a second "
+        f"stream")
+
+    # masked_median_rows over a padded row's prefix: the one-pass kernel
+    # against the 3-pass select
+    rows = inputs["uniform"]
+    for nv in counts:
+        r0, _, _, means = onepass_setup(torch, rows, nv)
+        one = ks.masked_median_rows(rows, r0, means, onepass=True, n_valid=nv)
+        three = ks.masked_median_rows(rows, r0, means, onepass=False, n_valid=nv)
+        check_equal(torch, f"masked_median_rows n_valid={nv} one-pass vs 3-pass", one[0], three[0])
+        check_close(f"masked_median_rows n_valid={nv} var", one[1] / nv, three[1] / nv, VAR_ATOL)
+    nv = hw - 1
+    r0, sel0, rank1, means = onepass_setup(torch, rows, nv)
+    _, launches = count_launches(
+        torch, wrappers, ONEPASS_PATH_N_VALID, f"masked_median_rows n_valid={nv} one-pass",
+        lambda: ks.masked_median_rows(rows, r0, means, onepass=True, n_valid=nv))
+    log(f"masked_median_rows {tuple(rows.shape)} n_valid in {counts}: the one-pass select equals "
+        f"the 3-pass select; launches {launches}")
+
+    # times: each input, then the n_valid mode in turns with the default
+    # (default, n_valid, n_valid, default) on the uniform rows
+    times = {}
+    for label, r in inputs.items():
+        _, s0, r1, m = onepass_setup(torch, r)
+        times[label] = timer.kernel(lambda: ks.q24_onepass(r, s0, r1, m))
+    _, s0, r1, m = onepass_setup(torch, rows)
+    modes = {"default": (s0, r1, m, None), "n_valid": (sel0, rank1, means, nv)}
+    timed = [(md, timer.kernel(lambda: ks.q24_onepass(rows, *modes[md][:3], n_valid=modes[md][3])))
+             for md in ("default", "n_valid", "n_valid", "default")]
+    t = {md: statistics.mean(ms for mm, ms in timed if mm == md) for md in modes}
+    nbytes = 2 * b * hw * 4
+    log(f"kernel q24_onepass {shape}: uniform {times['uniform']:.4f} ms, smooth "
+        f"{times['smooth']:.4f} ms, constant {times['constant']:.4f} ms, bound "
+        f"{nbytes / rates[0] * 1e3:.4f} ms by bytes; in turns "
+        f"{', '.join(f'{md} {ms:.4f}' for md, ms in timed)} ms: n_valid={nv} "
+        f"{t['n_valid']:.4f} ms ({t['n_valid'] / t['default']:.3f}x the default) [{smi}]")
+    nv_bytes = 2 * b * nv * 4
+    quantile_ms = timer.kernel(lambda: torch.quantile(rows[:, :nv], 0.5, dim=1,
+                                                      interpolation="midpoint"))
+    record = dict(
+        ms=t["n_valid"],
+        plain_ms=timer.kernel(lambda: ks.q24_onepass_plain(rows, sel0, rank1, means, n_valid=nv)),
+        library_ms=quantile_ms, bytes=nv_bytes,
+        bound=(nv_bytes / rates[0] * 1e3, "bytes"),
+        max_abs_err=var_err)
+    return {"q24_onepass_n_valid": record}, {"q24_onepass_n_valid": launches["q24_onepass"]}
+
+
 # --- phase 4b: the sharded mosaic ---------------------------------------------
 
 MOSAIC_SHAPE = (4093, 4099)
@@ -1000,6 +1182,8 @@ KERNEL_SOURCES = {
     "byte_hist_f32_live_rc": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:55"),
     "q24_tail_n_valid": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:220"),
     "q24_tail_live_rc": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:220"),
+    # the one-pass select's prefix mode, launched by masked_median_rows(n_valid=)
+    "q24_onepass_n_valid": ("rgnir_torch/csrc/onepass.cu", "rgnir_tpu/kernels/select.py:333"),
 }
 
 
@@ -1047,6 +1231,9 @@ def main() -> int:
     other_kind_counts(torch)
     smooth_and_headline(torch, timer, rates, MAIN_SHAPE)
     records.update(validity_checks(torch, timer, rates, MAIN_SHAPE, smi))
+    onepass_records, onepass_mode_launches = onepass_checks(torch, timer, rates, MAIN_SHAPE,
+                                                            WRAPPERS, smi)
+    records.update(onepass_records)
 
     # 4. path
     frames = torch.as_tensor(
@@ -1061,6 +1248,7 @@ def main() -> int:
     path_launches = dict(launches, q24_onepass=onepass_launches["q24_onepass"],
                          byte_hist_f32=f32_launches["byte_hist"])
     path_launches.update(mosaic_paths(torch, timer, WRAPPERS, smi))
+    path_launches.update(onepass_mode_launches)
     many_kinds_checks(torch, WRAPPERS)
     big_frame_checks(torch, WRAPPERS, smi)
 

@@ -4,7 +4,8 @@ histogram kernel -> white-balance bounds (O(256) tensor ops) -> fused
 kernel (WB, index maps, stats, 50-bin histogram, renders, round-0
 histogram) -> q24 radix select (two byte-histogram rounds and one tail
 pass that also gives the centred sum of squares; or, with
-``select_onepass=True``, one launch of the one-pass select). On CUDA
+``select_onepass=True``, the one-pass select: one launch per 64
+selected rows, 32 frames of two kinds). On CUDA
 tensors each step launches its kernel; on CPU tensors each takes its
 plain version, so the same composition runs in the CPU tests.
 Counterpart: ``rgnir_tpu/kernels/pipeline.py``.

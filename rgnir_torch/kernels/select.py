@@ -8,27 +8,30 @@ Kernels, in place of the TPU kernels of ``rgnir_tpu/kernels/select.py``:
 - ``q24_tail`` (``select.cu``): the q24 select's tail pass, for
   ``_q24_tail_kernel``;
 - ``q24_onepass`` (``rgnir_torch/csrc/onepass.cu``): rounds 1 and 2,
-  their picks and the tail in one launch that reads the values once, for
-  ``_q24_onepass_kernel``.
+  their picks and the tail in one launch (per 64 selected rows) that
+  reads each valid value once, for ``_q24_onepass_kernel``.
 
 ``take_prefix=(group, take)`` views the B input rows as groups of
 ``group`` consecutive rows and selects the first ``take`` of each; the
 kernels never read the skipped rows. ``byte_hist`` and ``q24_tail`` also
 take the TPU kernels' positional validity: a prefix (``n_valid``) or a
 rectangle (``live_rc``), for :func:`masked_median_sharded`, the median
-over a list of shards. The cdf picks between rounds are O(256) tensor ops
-on the device, so a select makes no host round trip.
+over a list of shards; ``q24_onepass`` takes the prefix, for
+:func:`masked_median_rows` over padded rows. The cdf picks between
+rounds are O(256) tensor ops on the device, so a select makes no host
+round trip.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple, Union
+import threading
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
-from rgnir_torch.kernels._build import launch
+from rgnir_torch.kernels._build import launch, library
 from rgnir_torch.ops.select import (
     SHIFTS,
     cdf_pick,
@@ -48,13 +51,6 @@ _KEY_MODE = {"q24": 0, "f32": 1}
 # JAX package's VMEM cache budget. The two packages accept and refuse the
 # same calls; the card itself would take larger rows.
 Q24_ONEPASS_MAX_CACHE_BYTES = 4 << 20
-# The one-pass kernel takes the selected rows in groups of at most this
-# many bytes, so that a group read once from device memory stays in the
-# card's 50 MB L2 for its second and third reads. Chosen on an H100 SXM
-# by tools/profile_torch_path.py --onepass-group-mb (PERF.md): larger
-# groups no longer stay in L2, smaller ones pay more grid barriers.
-ONEPASS_GROUP_BYTES = 32 << 20
-_ONEPASS_SCRATCH = 2060  # bytes per selected row: rank, 2 x 256 counts, key
 
 
 def _row_map(b: int, take_prefix: Optional[Tuple[int, int]]) -> Tuple[int, int, int]:
@@ -256,12 +252,13 @@ q24_tail.launches = 0
 
 def q24_onepass_plain(
     rows: torch.Tensor, sel0: torch.Tensor, rank1: torch.Tensor, means: torch.Tensor,
-    take_prefix: Optional[Tuple[int, int]] = None,
+    take_prefix: Optional[Tuple[int, int]] = None, n_valid: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Rounds 1 and 2 of the q24 select from the round-0 byte ``sel0``
     and the rank ``rank1`` left in it, then the tail: ``(lo, nxt,
-    centred sum of squares, eq_minus_rank)``."""
-    x = _selected(rows, take_prefix)
+    centred sum of squares, eq_minus_rank)``, over the first ``n_valid``
+    elements of each selected row (all of them by default)."""
+    x = _valid_elements(_selected(rows, take_prefix), n_valid)
     prefix = sel0.to(torch.int64) << 16
     rank = rank1.to(torch.int64)
     in_bin = None
@@ -273,36 +270,82 @@ def q24_onepass_plain(
     return lo, nxt, ss, in_bin - rank
 
 
+# The one-pass kernel keeps per-row tables in device memory, 533,520
+# bytes a selected row whatever its length (2^16 counts and minima of the
+# fine keys, a bitmap of those touched, 256 coarse counts): a launch takes
+# at most this many rows, so the tables of a device hold at most about
+# 34 MB. A call over more selected rows makes one launch per this many.
+ONEPASS_TABLE_ROWS = 64
+
+
+class _Tables:
+    """A device's one-pass tables: zeroed once here and left zeroed by
+    every launch, which clears only what it touched. ``event`` marks the
+    last launch's end on ``stream``; a launch on another stream waits for
+    it first."""
+
+    def __init__(self, nbytes: int, dev: torch.device, stream) -> None:
+        self.buf = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+        self.event = torch.cuda.Event()
+        self.stream = stream
+
+
+_ONEPASS_TABLES: Dict[int, _Tables] = {}
+_TABLES_LOCK = threading.Lock()
+
+
+def _onepass_tables(dev: torch.device, rows: int) -> _Tables:
+    lib = library("onepass")
+    lib.rgnir_q24_onepass_scratch_bytes.argtypes = [_I64]
+    lib.rgnir_q24_onepass_scratch_bytes.restype = _I64
+    nbytes = lib.rgnir_q24_onepass_scratch_bytes(rows)
+    stream = torch.cuda.current_stream(dev)
+    tables = _ONEPASS_TABLES.get(dev.index)
+    if tables is not None and tables.stream != stream:
+        stream.wait_event(tables.event)
+        tables.buf.record_stream(stream)
+        tables.stream = stream
+    if tables is None or tables.buf.numel() < nbytes:
+        tables = _ONEPASS_TABLES[dev.index] = _Tables(nbytes, dev, stream)
+    return tables
+
+
 def q24_onepass(
     rows: torch.Tensor, sel0: torch.Tensor, rank1: torch.Tensor, means: torch.Tensor,
-    take_prefix: Optional[Tuple[int, int]] = None,
+    take_prefix: Optional[Tuple[int, int]] = None, n_valid: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The one-pass q24 select: ``(lo, nxt)`` float32, the centred sum
     of squares float64 and eq_minus_rank int64, each ``(Bsel,)``, as
-    :func:`q24_onepass_plain` gives them. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (one cooperative launch,
-    which raises if the card refuses it)."""
+    :func:`q24_onepass_plain` gives them, over the first ``n_valid``
+    elements of each selected row (all by default). A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel, which reads each
+    valid value once: one launch per ``ONEPASS_TABLE_ROWS`` selected rows
+    (``sel0`` and ``rank1`` as ``round0_pick`` gives them, int64, need no
+    conversion)."""
     if rows.device.type == "cpu":
-        return q24_onepass_plain(rows, sel0, rank1, means, take_prefix)
+        return q24_onepass_plain(rows, sel0, rank1, means, take_prefix, n_valid)
     b_sel, group, take = _row_map(rows.shape[0], take_prefix)
     _check_rows(rows, b_sel, sel0, rank1, means)
+    nv, _, _ = _validity(rows.shape[1], n_valid, None, None)
     rows = rows.contiguous()
-    n = rows.shape[1]
-    sel0 = sel0.to(torch.int32).contiguous()
+    sel0 = sel0.to(torch.int64).contiguous()
     rank1 = rank1.to(torch.int64).contiguous()
     means = means.to(torch.float32).contiguous()
     dev = rows.device
-    scratch = torch.empty(b_sel * _ONEPASS_SCRATCH, dtype=torch.uint8, device=dev)
     lohi = torch.empty(b_sel, 2, dtype=torch.float32, device=dev)
     ss = torch.empty(b_sel, dtype=torch.float64, device=dev)
     eqmr = torch.empty(b_sel, dtype=torch.int64, device=dev)
-    group_rows = max(1, ONEPASS_GROUP_BYTES // max(4 * n, 1))
-    launch("onepass", "rgnir_q24_onepass",
-           (_P, _I64, _I64, _INT, _INT, _I64, _P, _P, _P, _P, _P, _P, _P),
-           (rows.data_ptr(), b_sel, n, group, take, group_rows, sel0.data_ptr(),
-            rank1.data_ptr(), means.data_ptr(), scratch.data_ptr(), lohi.data_ptr(),
-            ss.data_ptr(), eqmr.data_ptr()), dev)
-    q24_onepass.launches += 1
+    with _TABLES_LOCK:
+        tables = _onepass_tables(dev, min(b_sel, ONEPASS_TABLE_ROWS))
+        for first in range(0, b_sel, ONEPASS_TABLE_ROWS):
+            launch("onepass", "rgnir_q24_onepass",
+                   (_P, _I64, _I64, _I64, _I64, _INT, _INT, _P, _P, _P, _P, _P, _P, _P),
+                   (rows.data_ptr(), first, min(ONEPASS_TABLE_ROWS, b_sel - first),
+                    rows.shape[1], nv, group, take, sel0.data_ptr(), rank1.data_ptr(),
+                    means.data_ptr(), tables.buf.data_ptr(), lohi.data_ptr(), ss.data_ptr(),
+                    eqmr.data_ptr()), dev)
+            q24_onepass.launches += 1
+        tables.event.record(tables.stream)
     return lohi[:, 0], lohi[:, 1], ss, eqmr
 
 
@@ -323,10 +366,12 @@ def _select(
     rows: torch.Tensor, rank: torch.Tensor, key_mode: str,
     round0_hist: Optional[torch.Tensor] = None,
     take_prefix: Optional[Tuple[int, int]] = None,
+    n_valid: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The radix rounds: ``(selected key, eq_minus_rank)``, int64, for
-    each selected row; round 0 from ``round0_hist`` when given.
-    Counterpart: ``rgnir_tpu/kernels/select.py:_select_batched``."""
+    each selected row's first ``n_valid`` elements (all by default);
+    round 0 from ``round0_hist`` when given. Counterpart:
+    ``rgnir_tpu/kernels/select.py:_select_batched``."""
     b_sel, _, _ = _row_map(rows.shape[0], take_prefix)
     prefix = torch.zeros(b_sel, dtype=torch.int64, device=rows.device)
     rank = rank.to(torch.int64)
@@ -336,7 +381,7 @@ def _select(
         if shift == shifts[0] and round0_hist is not None:
             hist = round0_hist
         else:
-            hist = byte_hist(rows, prefix, shift, key_mode, take_prefix)
+            hist = byte_hist(rows, prefix, shift, key_mode, take_prefix, n_valid)
         sel, below, in_bin = cdf_pick(hist, rank)
         rank = rank - below
         prefix = prefix | (sel << shift)
@@ -345,6 +390,9 @@ def _select(
 
 
 def _check_onepass(round0_hist: Optional[torch.Tensor], n: int) -> None:
+    """The JAX package's refusals: no round-0 counts, or a row of ``n``
+    elements (rounded up to 1024, whatever its valid prefix) above the
+    cache budget."""
     if round0_hist is None:
         raise ValueError("onepass=True requires round0_hist")
     cache_bytes = -(-n // 1024) * 1024 * 4
@@ -356,20 +404,22 @@ def _check_onepass(round0_hist: Optional[torch.Tensor], n: int) -> None:
 def _q24_median(
     rows: torch.Tensor, rank: torch.Tensor, round0_hist: Optional[torch.Tensor],
     means: torch.Tensor, onepass: Optional[bool],
-    take_prefix: Optional[Tuple[int, int]] = None,
+    take_prefix: Optional[Tuple[int, int]] = None, n_valid: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The q24 median (numpy even-n semantics) and centred sum of squares
-    of each selected row, by the 3-pass select or, with ``onepass``, the
-    one-pass kernel."""
+    of each selected row's first ``n_valid`` elements (all by default), by
+    the 3-pass select or, with ``onepass``, the one-pass kernel."""
     n = rows.shape[1]
+    nv = n if n_valid is None else n_valid
     if onepass:
         _check_onepass(round0_hist, n)
         sel0, rank1 = round0_pick(round0_hist, rank)
-        lo, nxt, sumsq, eq_minus_rank = q24_onepass(rows, sel0, rank1, means, take_prefix)
+        lo, nxt, sumsq, eq_minus_rank = q24_onepass(rows, sel0, rank1, means, take_prefix,
+                                                    n_valid)
     else:
-        kp, eq_minus_rank = _select(rows, rank, "q24", round0_hist, take_prefix)
-        lo, nxt, sumsq = q24_tail(rows, kp, means, take_prefix)
-    if n % 2 == 1:
+        kp, eq_minus_rank = _select(rows, rank, "q24", round0_hist, take_prefix, n_valid)
+        lo, nxt, sumsq = q24_tail(rows, kp, means, take_prefix, n_valid)
+    if nv % 2 == 1:
         return lo, sumsq
     hi = torch.where(eq_minus_rank >= 2, lo, nxt)
     return (lo + hi) * 0.5, sumsq
@@ -380,25 +430,30 @@ def masked_median_rows(
     round0_hist: Optional[torch.Tensor] = None,
     means: Optional[torch.Tensor] = None,
     onepass: Optional[bool] = None,
+    n_valid: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact median (numpy even-n semantics) and centred sum of squares
-    of each row of ``(R, n)`` float32 index maps.
+    of the first ``n_valid`` elements (all by default) of each row of
+    ``(R, n)`` float32 index maps: rows padded past ``n_valid``, as the
+    fused kernel's ``(B, R, 1024)`` rows are.
 
-    ``round0_hist``: ``(R, 256)`` counts of the q24 top byte (the fused
-    pass's round-0 output), which saves round 0's pass; ``means``:
-    ``(R,)`` centres for the sum of squares (zeros by default);
-    ``onepass=True`` runs the one-pass kernel (it needs ``round0_hist``
-    and rows within ``Q24_ONEPASS_MAX_CACHE_BYTES``), else the 3-pass
-    select. The q24 key is exact only for index maps of uint8 bands
-    (distinct values more than 2^-19 apart, all in [-1, 1]).
+    ``round0_hist``: ``(R, 256)`` counts of the q24 top byte over the
+    valid elements (the fused pass's round-0 output), which saves round
+    0's pass; ``means``: ``(R,)`` centres for the sum of squares (zeros by
+    default); ``onepass=True`` runs the one-pass kernel (it needs
+    ``round0_hist`` and rows within ``Q24_ONEPASS_MAX_CACHE_BYTES``,
+    whatever ``n_valid``), else the 3-pass select. The q24 key is exact
+    only for index maps of uint8 bands (distinct values more than 2^-19
+    apart, all in [-1, 1]).
     Counterpart: ``rgnir_tpu/kernels/select.py:masked_median_pallas_rows``.
     """
     r, n = rows.shape
+    nv, _, _ = _validity(n, n_valid, None, None)
     dev = rows.device
-    rank = torch.full((r,), (n - 1) // 2, dtype=torch.int64, device=dev)
+    rank = torch.full((r,), (nv - 1) // 2, dtype=torch.int64, device=dev)
     if means is None:
         means = torch.zeros(r, dtype=torch.float32, device=dev)
-    return _q24_median(rows, rank, round0_hist, means, onepass)
+    return _q24_median(rows, rank, round0_hist, means, onepass, n_valid=n_valid)
 
 
 def _flatten(vals: torch.Tensor, reduce_ndim: int) -> Tuple[tuple, int, torch.Tensor]:

@@ -169,6 +169,61 @@ def test_cuda_onepass_median_matches_threepass(cuda, n):
     assert np.array_equal(med1.cpu().numpy(), want)
 
 
+ONEPASS_SHAPE = (2, 256, 384)
+
+
+def _onepass_rows(label, shape=ONEPASS_SHAPE):
+    """chip_smoke.py's one-pass inputs: the two canonical kinds' index maps
+    of uniform frames or of the smooth field, or constant rows (every
+    element in one bin), (2B, H*W)."""
+    return chip_smoke.onepass_inputs(torch, shape)[label]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["uniform", "smooth", "constant"])
+def test_cuda_onepass_inputs_match_plain(cuda, label):
+    """The one-pass kernel on each of chip_smoke.py's inputs, with and
+    without a row map: lo, nxt and eq_minus_rank exact."""
+    rows = _onepass_rows(label)
+    chip_smoke.check_onepass(torch, label, rows)
+    chip_smoke.check_onepass(torch, f"{label} take (2, 1)", rows, (2, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"take_prefix": (3, 2)}, {"n_valid": 4998},
+                                {"n_valid": 2499}, {"n_valid": 1}])
+def test_cuda_onepass_odd_length_matches_plain(cuda, kw):
+    """Rows of 4999 elements: not a multiple of 4, read one at a time."""
+    rows = _onepass_rows("uniform", (3, 256, 384))[:, :4999].contiguous()
+    chip_smoke.check_onepass(torch, f"4999 {kw}", rows, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_valid", [1, 2, 256 * 384 // 2 + 1, 256 * 384 - 1])
+def test_cuda_onepass_n_valid_matches_plain(cuda, n_valid):
+    """The prefix mode on padded rows (odd and even counts, mid-row and
+    mid-word), and masked_median_rows(n_valid=) through it equal to its
+    3-pass select."""
+    rows = _onepass_rows("uniform")
+    chip_smoke.check_onepass(torch, f"n_valid={n_valid}", rows, n_valid=n_valid)
+    r0, _, _, means = chip_smoke.onepass_setup(torch, rows, n_valid)
+    med1, ss1 = tk.masked_median_rows(rows, r0, means, onepass=True, n_valid=n_valid)
+    med3, ss3 = tk.masked_median_rows(rows, r0, means, onepass=False, n_valid=n_valid)
+    assert torch.equal(med1, med3)
+    assert float((ss1 - ss3).abs().max()) / n_valid <= VAR_ATOL
+    want = np.median(rows[:, :n_valid].cpu().numpy(), axis=1).astype(np.float32)
+    assert np.array_equal(med1.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_onepass_over_table_rows_and_streams(cuda):
+    """More selected rows than one launch's tables hold: one launch per
+    ONEPASS_TABLE_ROWS rows, plain and with a row map; then on a second
+    stream and back."""
+    b_sel, launches = chip_smoke.check_onepass_table_rows(torch)
+    assert launches == -(-b_sel // tselect.ONEPASS_TABLE_ROWS) > 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(64, 96), (2, 64, 96)])
 def test_cuda_path_matches_plain_path(cuda, shape):

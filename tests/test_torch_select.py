@@ -104,6 +104,49 @@ def test_q24_onepass_plain_matches_pallas(n, take_prefix):
         assert torch.equal(a, b)
 
 
+def _padded_rows(seed, nv, batch=6):
+    """``(batch, R * 1024)`` rows of which the first ``nv`` elements of
+    each are valid (R a multiple of BLOCK_R, as the fused kernel packs
+    them), the padding other index values, so that only the positional
+    mask keeps it out; and the same rows packed ``(batch, R, 1024)``."""
+    length = -(-nv // (BLOCK_R * 1024)) * BLOCK_R * 1024
+    rows = _index_rows(seed, length, batch=(batch,))
+    return rows, rows.reshape(batch, -1, 1024)
+
+
+# n_valid: the valid prefix of padded rows, one even and one odd count
+# below each row length (8192 elements at BLOCK_R 8)
+N_VALID = [3000, 2999, 4097, 4096]
+
+
+@pytest.mark.parametrize("take_prefix", TAKES)
+@pytest.mark.parametrize("nv", N_VALID)
+def test_q24_onepass_plain_n_valid_matches_pallas(nv, take_prefix):
+    rows, packed = _padded_rows(9, nv)
+    assert nv < rows.shape[1]
+    r0 = _r0(rows[:, :nv], take_prefix)
+    b_sel = r0.shape[0]
+    rank = np.full(b_sel, (nv - 1) // 2, np.int32)
+    valid = _selected(rows.reshape(2, 3, -1), take_prefix).reshape(b_sel, -1)[:, :nv]
+    means = valid.mean(axis=1).astype(np.float32)
+    sel0, rank1 = tselect.round0_pick(torch.from_numpy(r0), torch.from_numpy(rank).long())
+    lo, nxt, ss, eqmr = tselect.q24_onepass_plain(
+        torch.from_numpy(rows), sel0, rank1, torch.from_numpy(means), take_prefix, n_valid=nv)
+    want = _q24_onepass(jnp.asarray(packed), jnp.asarray(host(sel0)),
+                        jnp.asarray(host(rank1).astype(np.int32)), jnp.asarray(means), nv,
+                        BLOCK_R, True, take_prefix=take_prefix, with_sumsq=True)
+    np.testing.assert_array_equal(host(lo), host(want[0]))
+    np.testing.assert_array_equal(host(nxt), host(want[1]))
+    np.testing.assert_allclose(host(ss), host(want[2]), atol=VAR_ATOL * nv, rtol=0)
+    np.testing.assert_array_equal(host(eqmr), host(want[3]).astype(np.int64))
+    # lo is the median's value: the valid prefix's rank-th element
+    np.testing.assert_array_equal(host(lo), np.sort(valid, axis=1)[:, (nv - 1) // 2])
+    got = tselect.q24_onepass(torch.from_numpy(rows), sel0, rank1, torch.from_numpy(means),
+                              take_prefix, n_valid=nv)
+    for a, b in zip(got, (lo, nxt, ss, eqmr)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("take_prefix", TAKES)
 @pytest.mark.parametrize("shift", [24, 16, 8, 0])
 def test_byte_hist_f32_matches_pallas(shift, take_prefix):
@@ -209,12 +252,32 @@ def test_masked_median_rows_onepass_matches_pallas(shape):
     assert torch.equal(med, med3)
 
 
+@pytest.mark.parametrize("onepass", [False, True])
+@pytest.mark.parametrize("nv", N_VALID)
+def test_masked_median_rows_n_valid_matches_pallas(nv, onepass):
+    rows, packed = _padded_rows(10, nv)
+    valid = rows[:, :nv]
+    r0 = _r0(valid)
+    means = valid.mean(axis=1, dtype=np.float64).astype(np.float32)
+    med, ss = tselect.masked_median_rows(torch.from_numpy(rows), torch.from_numpy(r0),
+                                         torch.from_numpy(means), onepass=onepass, n_valid=nv)
+    want_med, want_ss = masked_median_pallas_rows(
+        jnp.asarray(packed), nv, block_r=BLOCK_R, round0_hist=jnp.asarray(r0),
+        means=jnp.asarray(means), onepass=onepass)
+    np.testing.assert_array_equal(host(med), host(want_med))
+    np.testing.assert_array_equal(host(med), np.median(valid, axis=1).astype(np.float32))
+    np.testing.assert_allclose(host(ss) / nv, host(want_ss) / nv, atol=VAR_ATOL, rtol=0)
+    np.testing.assert_allclose(host(ss) / nv, valid.var(axis=1, dtype=np.float64),
+                               atol=VAR_ATOL, rtol=0)
+
+
 def _bad_calls():
     """(name, port call, JAX call) of inputs both packages refuse."""
     v = _index_rows(7, 3000)
     r0 = _r0(v)
     big = np.zeros((1, 1024 * 1024 + 1), np.float32)
     big_r0 = np.zeros((1, 256), np.int32)
+    big_rows = np.zeros((1, 1025, 1024), np.float32)
     t, j = torch.from_numpy, jnp.asarray
     return {
         "onepass_without_round0": (
@@ -233,6 +296,12 @@ def _bad_calls():
             lambda: masked_median_pallas_rows(
                 j(np.pad(v.reshape(6, -1), ((0, 0), (0, 72))).reshape(6, 3, 1024)),
                 3000, onepass=True)),
+        # the budget is on the row's length, whatever its valid prefix
+        "rows_onepass_over_budget_short_prefix": (
+            lambda: tselect.masked_median_rows(t(big_rows.reshape(1, -1)), t(big_r0),
+                                               onepass=True, n_valid=1000),
+            lambda: masked_median_pallas_rows(j(big_rows), 1000, round0_hist=j(big_r0),
+                                              onepass=True)),
         "take_prefix_group_mismatch": (
             lambda: tselect.masked_median(t(v), 3000, take_prefix=(2, 1), round0_hist=t(r0)),
             lambda: masked_median_pallas(j(v), 3000, take_prefix=(2, 1), round0_hist=j(r0))),

@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
-"""Time design variants of the hist and fused kernels on one CUDA card.
+"""Time design variants of the hist, fused and one-pass select kernels
+on one CUDA card.
 
-    python3 tools/kernel_variants.py [--only hist|fused] [--sass]
+    python3 tools/kernel_variants.py [--only hist|fused|onepass] [--sass]
 
-Each variant is the shipped source (``rgnir_torch/csrc/hist.cu`` or
-``fused.cu``) with a few exact text substitutions: a constant (blocks per
-SM, threads, histogram copies) or the body of one helper (how a byte or a
-bin is counted). A substitution whose text is no longer in the source
-raises, so the list cannot drift from the kernels silently. The variants
-build side by side with ``nvcc`` into ``build/kernel_variants/``, one
+Each variant is the shipped source (``rgnir_torch/csrc/hist.cu``,
+``fused.cu`` or ``onepass.cu``) with a few exact text substitutions: a
+constant (blocks per SM, threads, histogram copies) or the body of one
+helper (how a byte or a bin is counted). A substitution whose text is no
+longer in the source raises, so the list cannot drift from the kernels
+silently. The variants build side by side with ``nvcc`` into ``build/kernel_variants/``, one
 process each, and run through the package's own wrappers, so a time here
 means what ``chip_smoke.py``'s means: the median of 20 launches, L2
 flushed before each, the stream held so that only device time counts.
 
-Every variant runs on two inputs at 8 x 1024^2 x 3: uniform random bytes
-and ``chip_smoke.py``'s smooth field (long runs of equal values, a
-saturated and a black region), in turns with the shipped kernel. A
-variant that is a design candidate is held against the plain version
-first; one marked ``diagnostic`` leaves work out on purpose (no shared
-atomics, no render stores) to show what the shipped kernel spends there,
+Every hist and fused variant runs on two inputs at 8 x 1024^2 x 3:
+uniform random bytes and ``chip_smoke.py``'s smooth field (long runs of
+equal values, a saturated and a black region), in turns with the shipped
+kernel; the one-pass select's on the (a1) path's rows of those two and
+of a constant frame (``chip_smoke.onepass_inputs``). A variant that is a
+design candidate is held against the plain version first; one marked
+``diagnostic`` leaves work out on purpose (no shared atomics, no render
+stores, no round-0 bin work) to show what the shipped kernel spends there,
 and its output is not checked. ``--sass`` also writes the shipped fused
 kernel's SASS (three kinds, renders, histogram) and prints its
 instruction count per loop step. Needs a CUDA device.
@@ -350,6 +353,16 @@ FUSED_VARIANTS = {
 }
 
 
+# a diagnostic: the sweep without the round-0 bin's runs, run table and
+# table atomics, to show what the shipped kernel spends there
+ONEPASS_NO_BIN = [("        if ((key[j] >> 16) == sel0) in_bin(",
+                   "        if ((key[j] >> 16) == sel0 && e[j] == 12345.f) in_bin(")]
+
+ONEPASS_VARIANTS = {
+    "no round-0 bin work (no counts, no minima)": (True, ONEPASS_NO_BIN),
+}
+
+
 # --- building and loading ---------------------------------------------------------
 
 def patched(source: str, subs) -> str:
@@ -428,9 +441,45 @@ def sass_report(out_dir: str) -> None:
 
 # --- timing --------------------------------------------------------------------------
 
+def onepass_variants(torch, cs, out_dir) -> int:
+    """The one-pass select's diagnostic on chip_smoke.py's three inputs at
+    the (a1) path's rows (uniform, smooth and constant), in turns with the
+    shipped kernel."""
+    from rgnir_torch.kernels import _build
+    from rgnir_torch.kernels import select as ks
+
+    t0 = time.perf_counter()
+    _build.build(("hist", "fused", "onepass"))
+    paths = build_variants("onepass", ONEPASS_VARIANTS, out_dir)
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    timer = cs.Timer(torch)
+    rows = cs.onepass_inputs(torch, SHAPE)
+    args = {label: cs.onepass_setup(torch, r)[1:] for label, r in rows.items()}
+    shipped = _build.library("onepass")
+    print(f"\nq24_onepass: ms on uniform / smooth / constant rows {tuple(rows['uniform'].shape)}; "
+          f"shipped kernel timed before and after each variant", flush=True)
+    for name in ONEPASS_VARIANTS:
+        lib = load(paths[name])
+        cells = []
+        try:
+            for label, r in rows.items():
+                fn = (lambda r=r, a=args[label]: ks.q24_onepass(r, *a))
+                _build._LIBS["onepass"] = shipped
+                before = timer.kernel(fn)
+                _build._LIBS["onepass"] = lib
+                ms = timer.kernel(fn)
+                _build._LIBS["onepass"] = shipped
+                after = timer.kernel(fn)
+                cells.append(f"{label} {ms:.4f} [shipped {before:.4f}, {after:.4f}]")
+        finally:
+            _build._LIBS["onepass"] = shipped
+        print(f"  {name} (diagnostic, unchecked): " + "; ".join(cells), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("hist", "fused"), default=None)
+    ap.add_argument("--only", choices=("hist", "fused", "onepass"), default=None)
     ap.add_argument("--sass", action="store_true")
     args = ap.parse_args()
 
@@ -451,6 +500,8 @@ def main() -> int:
     print(smi, flush=True)
     out_dir = os.path.join(ROOT, "build", "kernel_variants")
     os.makedirs(out_dir, exist_ok=True)
+    if args.only == "onepass":
+        return onepass_variants(torch, cs, out_dir)
     t0 = time.perf_counter()
     _build.build(("hist", "fused"))
     todo = [k for k in ("hist", "fused") if args.only in (None, k)]
@@ -516,6 +567,8 @@ def main() -> int:
             print(f"  {name} ({tag}): " + "; ".join(cells), flush=True)
     if args.sass:
         sass_report(out_dir)
+    if args.only is None:
+        return onepass_variants(torch, cs, out_dir)
     return 0
 
 

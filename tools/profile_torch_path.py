@@ -2,7 +2,8 @@
 """Where the time of rgnir_torch's analysis path goes, on one CUDA card.
 
     python3 tools/profile_torch_path.py [--batch 8] [--size 1024] [--calls 5]
-                                        [--mosaic 8192] [--only-mosaic]
+                                        [--mosaic 8192] [--only-mosaic] [--onepass]
+                                        [--package-root DIR]
 
 For each configuration of chip_smoke.py's path phase (NDVI, GNDVI and
 NDWI with renders and the 50-bin histogram; NDVI alone without the
@@ -25,17 +26,20 @@ histogram; the three kinds again with the one-pass select,
 renders) on a ``SIDE x SIDE`` mosaic over a 1-D mesh of one and of four
 shards of the card; ``--only-mosaic`` skips the frame configurations.
 A Chrome trace of each window goes to ``build/torch_path_traces/``.
-``--onepass-group-mb 8,16,24`` also times the one-pass select kernel on
-the batch's canonical index maps with each group size (the L2-resident
-share it takes at a time, ``select.ONEPASS_GROUP_BYTES``): CUDA events
-around each launch, L2 flushed before it, median of 20. Inputs are made
-from ``numpy.random.default_rng(0)``. Needs a CUDA device.
+``--onepass`` also times the one-pass select kernel on chip_smoke.py's
+three inputs at the (a1) path's rows (``time_onepass``).
+``--package-root DIR`` profiles the ``rgnir_torch`` package of another
+tree (a parent's ``git archive``) with this tree's tool and
+``chip_smoke.py`` helpers, so that a parent and a change run in turns
+measure the same things. Inputs are made from
+``numpy.random.default_rng(0)``. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import subprocess
 import sys
 import time
 
@@ -48,48 +52,18 @@ CONFIGS = (  # label, kinds, with_hist, select_onepass
 )
 
 
-def sweep_onepass_groups(torch, img, sizes_mb, reps=20):
-    """Median device time of q24_onepass per group size, in ms."""
-    import statistics
-
-    from rgnir_torch.config import IndexKind
+def time_onepass(torch, cs, shape):
+    """Device time of q24_onepass, as chip_smoke.py's Timer gives it, on
+    chip_smoke.py's three inputs at the (a1) path's rows for frames of
+    ``shape``: the two canonical kinds' index maps of uniform frames and
+    of the smooth field, and constant rows."""
     from rgnir_torch.kernels import select as ks
-    from rgnir_torch.kernels.fused import fused_analyze
-    from rgnir_torch.kernels.hist import channel_histograms
-    from rgnir_torch.ops.wb import wb_bounds_from_histogram
 
-    b, h, w = img.shape[:3]
-    n = h * w
-    kinds = tuple(IndexKind.parse(k) for k in ("NDVI", "GNDVI", "NDWI"))
-    lo, hi = wb_bounds_from_histogram(channel_histograms(img), n=n)
-    out = fused_analyze(img, lo, hi, kinds, round0=(True, True, False))
-    rows = out.idx.reshape(3 * b, n)[: 2 * b]
-    r0c = out.r0[:, :2].transpose(0, 1).reshape(2 * b, 256)
-    means = (out.sum[:, :2].T.reshape(-1) / n).to(torch.float32)
-    rank = torch.full((2 * b,), (n - 1) // 2, dtype=torch.int64, device="cuda")
-    sel0, rank1 = ks.round0_pick(r0c, rank)
-    flush = torch.ones(128 << 20, dtype=torch.uint8, device="cuda")
-    default = ks.ONEPASS_GROUP_BYTES
-    try:
-        for mb in sizes_mb:
-            ks.ONEPASS_GROUP_BYTES = mb << 20
-            for _ in range(2):
-                ks.q24_onepass(rows, sel0, rank1, means)
-            torch.cuda.synchronize()
-            events = [(torch.cuda.Event(enable_timing=True),
-                       torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-            torch.cuda._sleep(50_000_000)
-            for e0, e1 in events:
-                flush.amax()
-                e0.record()
-                ks.q24_onepass(rows, sel0, rank1, means)
-                e1.record()
-            torch.cuda.synchronize()
-            ms = statistics.median(e0.elapsed_time(e1) for e0, e1 in events)
-            print(f"  q24_onepass, groups of {mb} MB ({max(1, (mb << 20) // (4 * n))} rows of "
-                  f"{2 * b}): {ms:.4f} ms", flush=True)
-    finally:
-        ks.ONEPASS_GROUP_BYTES = default
+    timer = cs.Timer(torch)
+    for label, rows in cs.onepass_inputs(torch, shape).items():
+        _, sel0, rank1, means = cs.onepass_setup(torch, rows)
+        ms = timer.kernel(lambda: ks.q24_onepass(rows, sel0, rank1, means))
+        print(f"  q24_onepass {label} {tuple(rows.shape)}: {ms:.4f} ms", flush=True)
 
 
 def profile_call(torch, label, call, mpix, calls, trace_path):
@@ -140,11 +114,13 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--size", type=int, default=1024)
     ap.add_argument("--calls", type=int, default=5)
-    ap.add_argument("--onepass-group-mb", default="",
-                    help="comma-separated group sizes to time the one-pass select at")
+    ap.add_argument("--onepass", action="store_true",
+                    help="also time the one-pass select kernel on three inputs")
     ap.add_argument("--mosaic", type=int, default=0,
                     help="also profile the sharded mosaic's kernel body at this side")
     ap.add_argument("--only-mosaic", action="store_true")
+    ap.add_argument("--package-root", default=None,
+                    help="profile the rgnir_torch package of this tree instead")
     args = ap.parse_args()
 
     import torch
@@ -154,6 +130,10 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, root)
+    import chip_smoke as cs  # this tree's, before another tree comes first on the path
+
+    if args.package_root:
+        sys.path.insert(0, os.path.abspath(args.package_root))
     from rgnir_torch.kernels._build import build
     from rgnir_torch.kernels.pipeline import analyze_image_kernel
     from rgnir_torch.pipeline.dispatch import analyze_image_auto
@@ -166,7 +146,12 @@ def main() -> int:
     mpix = args.batch * args.size * args.size / 1e6
     out_dir = os.path.join(root, "build", "torch_path_traces")
     os.makedirs(out_dir, exist_ok=True)
-    print(f"device: {torch.cuda.get_device_name(0)}; frames {shape}", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    import rgnir_torch
+
+    print(f"device: {torch.cuda.get_device_name(0)} [{smi}]; frames {shape}; package "
+          f"{os.path.dirname(rgnir_torch.__file__)}", flush=True)
 
     for n, (label, kinds, with_hist, onepass) in enumerate(CONFIGS):
         if args.only_mosaic:
@@ -194,9 +179,9 @@ def main() -> int:
                                        with_renders=True, impl="kernel"),
                 side * side / 1e6, args.calls,
                 os.path.join(out_dir, f"torch_mosaic_trace_{shards}.json"))
-    if args.onepass_group_mb:
-        print("\none-pass select kernel by group size:", flush=True)
-        sweep_onepass_groups(torch, img, [int(x) for x in args.onepass_group_mb.split(",")])
+    if args.onepass:
+        print(f"\none-pass select kernel [{smi}]:", flush=True)
+        time_onepass(torch, cs, (args.batch, args.size, args.size))
     return 0
 
 
