@@ -63,6 +63,21 @@ Phases, each reported on its own line:
    fused against their plain versions taken in bands of rows, and the
    mosaic's kernel body on one shard of it against four shards, with the
    phase's peak device memory;
+4d. the streaming session, through ``rgnir_torch.native.FrameRing`` and
+   ``rgnir_torch.pipeline.streaming.StreamAnalyzer`` on the card: (i)
+   four spawned producer processes each push 24 frames of 1080 x 1920
+   (``default_rng((seed, stream, seq))``), unpaced, into their own ring
+   (capacity from /dev/shm's free space, at least 2), read by one
+   batch-8 analyzer with NDVI, GNDVI and NDWI, statistics only: every
+   frame arrives, each ring in order, with the statistics of the plain
+   ``analyze_image`` of that frame made again, and each dispatch
+   launches hist 1, fused 1, byte_hist 2 and q24_tail 1; frames/s, MPix/s
+   and 30 fps streams per card; (ii) one producer at 30 fps for 60
+   frames into a batch-1, depth-2 analyzer to the end of its stream:
+   every frame, frames 0 and 59 against the plain path, the p50 and p99
+   latency from ``try_push`` to statistics on the host; (iii) three
+   frames from two rings into a batch-8 analyzer with ``max_frames=3``:
+   one partial dispatch, routed, against the plain path;
 5. the kernel self-test (``rgnir_torch.testing.selftest``), which must
    pass;
 6. a ``kernels`` JSON line for the records.
@@ -218,7 +233,7 @@ def smooth_field(shape, seed=SEED):
     return img
 
 
-def check_hist_fused(torch, what, img, kinds, round0, with_hist=True):
+def check_hist_fused(torch, what, img, kinds, round0, with_hist=True, with_renders=True):
     """hist and fused against their plain versions on ``img``; returns
     (lo, hi, idx error, mean error, the fused kernel's output)."""
     from rgnir_torch.kernels import fused as kf
@@ -229,8 +244,8 @@ def check_hist_fused(torch, what, img, kinds, round0, with_hist=True):
     hist = kh.channel_histograms(img)
     check_equal(torch, f"hist {what}", hist, kh.histograms_plain(img))
     lo, hi = wb_bounds_from_histogram(hist, n=n)
-    out = kf.fused_analyze(img, lo, hi, kinds, True, with_hist, round0)
-    ref = kf.fused_analyze_plain(img, lo, hi, kinds, True, with_hist, round0)
+    out = kf.fused_analyze(img, lo, hi, kinds, with_renders, with_hist, round0)
+    ref = kf.fused_analyze_plain(img, lo, hi, kinds, with_renders, with_hist, round0)
     for name in ("wb", "rgb", "min", "max", "above", "hist50", "r0"):
         check_equal(torch, f"fused.{name} {what}", getattr(out, name), getattr(ref, name))
     idx_err = check_close(f"fused.idx {what}", out.idx, ref.idx, IDX_ATOL)
@@ -279,7 +294,11 @@ def other_kind_counts(torch, shape=(2, 97, 333)):
     log(f"kernel fused {shape}: 2, 4 and 8 kinds match the plain version")
 
 
-def kernel_checks(torch, timer, rates, shape, timed, skip=0):
+def kernel_checks(torch, timer, rates, shape, timed, skip=0, with_hist=True,
+                  with_renders=True):
+    """Every kernel of the path against its plain version on uniform
+    frames of ``shape``, the select's prefixes from real picks; fused in
+    the given hist and renders mode. Timed, it returns the records."""
     from rgnir_torch.config import IndexKind
     from rgnir_torch.kernels import fused as kf
     from rgnir_torch.kernels import hist as kh
@@ -293,12 +312,16 @@ def kernel_checks(torch, timer, rates, shape, timed, skip=0):
         require(img.is_contiguous() and img.data_ptr() % 2 == 1,
                 "the offset view starts at an odd address")
         shape = f"{shape} at frames {skip}: of {b + skip}"
+    if not (with_hist and with_renders):
+        require(not timed, "the timed records are of fused with hist and renders")
+        shape = f"{shape} hist={with_hist} renders={with_renders}"
     kinds = tuple(IndexKind.parse(k) for k in KINDS)
     nk, nc = len(kinds), 2  # NDWI is derived from GNDVI on the path
     round0 = (True, True, False)
     records = {}
 
-    lo, hi, idx_err, mean_err, out = check_hist_fused(torch, shape, img, kinds, round0)
+    lo, hi, idx_err, mean_err, out = check_hist_fused(torch, shape, img, kinds, round0,
+                                                      with_hist, with_renders)
 
     rows = out.idx.reshape(nk * b, n)[: nc * b]
     r0c = out.r0[:, :nc].transpose(0, 1).reshape(nc * b, 256)
@@ -429,24 +452,32 @@ def kernel_checks(torch, timer, rates, shape, timed, skip=0):
 
 # --- phase 4: the whole path ---------------------------------------------------
 
+def check_stats(torch, what, g, r, with_hist):
+    """``IndexStats`` under the contract: exact min, max, median,
+    coverage and n (and histogram); mean within 1e-5; variance within
+    1e-4; finite mean and std."""
+    for field in ("min", "max", "median", "coverage_pct", "n"):
+        check_equal(torch, f"{what}.{field}", getattr(g, field), getattr(r, field))
+    check_close(f"{what}.mean", g.mean, r.mean, MEAN_ATOL)
+    check_close(f"{what}.var", g.std ** 2, r.std ** 2, VAR_ATOL)
+    if with_hist:
+        check_equal(torch, f"{what}.histogram", g.histogram, r.histogram)
+    elif g.histogram is not None:
+        raise AssertionError(f"{what}: histogram should be None")
+    for name, t in (("mean", g.mean), ("std", g.std)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{what}.{name}: not finite")
+
+
 def check_result(torch, what, got, want, kinds, with_hist):
     check_equal(torch, f"{what} wb", got.wb, want.wb)
     for k in kinds:
         check_close(f"{what} idx {k}", got.indices[k], want.indices[k], IDX_ATOL)
         if want.renders:
             check_equal(torch, f"{what} render {k}", got.renders[k], want.renders[k])
-        g, r = got.stats[k], want.stats[k]
-        for field in ("min", "max", "median", "coverage_pct", "n"):
-            check_equal(torch, f"{what} {k}.{field}", getattr(g, field), getattr(r, field))
-        check_close(f"{what} {k}.mean", g.mean, r.mean, MEAN_ATOL)
-        check_close(f"{what} {k}.var", g.std ** 2, r.std ** 2, VAR_ATOL)
-        if with_hist:
-            check_equal(torch, f"{what} {k}.histogram", g.histogram, r.histogram)
-        elif g.histogram is not None:
-            raise AssertionError(f"{what} {k}: histogram should be None")
-        for name, t in (("idx", got.indices[k]), ("mean", g.mean), ("std", g.std)):
-            if not bool(torch.isfinite(t).all()):
-                raise AssertionError(f"{what} {k}.{name}: not finite")
+        check_stats(torch, f"{what} {k}", got.stats[k], want.stats[k], with_hist)
+        if not bool(torch.isfinite(got.indices[k]).all()):
+            raise AssertionError(f"{what} {k}.idx: not finite")
 
 
 def check_numpy(torch, analyze_image_auto):
@@ -1166,6 +1197,231 @@ def big_frame_checks(torch, wrappers, smi):
     torch.cuda.empty_cache()
 
 
+# --- phase 4d: the streaming session -------------------------------------------
+
+STREAM_SHAPE = (1080, 1920)  # BASELINE config 4: 1080p frames
+STREAM_RINGS = 4
+STREAM_FRAMES = 24           # per ring, unpaced
+STREAM_BATCH = 8
+PACED_FPS = 30
+PACED_FRAMES = 60
+STREAM_MAX_CAPACITY = 4
+# each dispatch of a batch launches this set, once each (byte_hist: two rounds)
+STREAM_LAUNCHES = {"hist": 1, "fused": 1, "byte_hist": 2, "q24_tail": 1, "q24_onepass": 0}
+PRODUCER_WAIT_S = 180
+
+
+def stream_frame(stream, seq):
+    """Frame ``seq`` of stream ``stream``: uniform bytes from
+    ``numpy.random.default_rng((SEED, stream, seq))``."""
+    return np.random.default_rng((SEED, stream, seq)).integers(
+        0, 256, STREAM_SHAPE + (3,), dtype=np.uint8)
+
+
+def stream_producer(name, stream, count, fps, ready, go, push_times):
+    """A producer process: makes its ``count`` frames, says it is ready,
+    waits for ``go``, pushes them (paced at ``fps``, or as fast as the
+    ring takes them with ``fps`` 0), ends the stream and sends back the
+    time at which it began to push each frame (``time.monotonic``, one
+    clock for every process of the machine). It imports the ring alone
+    and touches no CUDA."""
+    from rgnir_torch.native import FrameRing
+
+    frames = [stream_frame(stream, seq) for seq in range(count)]
+    ring = FrameRing.open(name, STREAM_SHAPE + (3,))
+    ready.put(stream)
+    go.wait()
+    t0 = time.monotonic()
+    times = []
+    for seq, frame in enumerate(frames):
+        if fps:
+            time.sleep(max(0.0, t0 + seq / fps - time.monotonic()))
+        times.append(time.monotonic())
+        while not ring.try_push(frame):
+            time.sleep(0.0002)
+    ring.finish()
+    ring.close()
+    push_times.put((stream, times))
+
+
+def ring_capacity(n_rings):
+    """Frames per ring so that ``n_rings`` rings of 1080p frames fit in
+    90% of /dev/shm's free space (a write past it is a SIGBUS, not an
+    error): at most ``STREAM_MAX_CAPACITY``, at least 2."""
+    st = os.statvfs("/dev/shm")
+    free = st.f_bavail * st.f_frsize
+    frame_bytes = STREAM_SHAPE[0] * STREAM_SHAPE[1] * 3
+    capacity = min(STREAM_MAX_CAPACITY, int(0.9 * free) // (n_rings * frame_bytes))
+    require(capacity >= 2, f"/dev/shm holds {free} bytes: too few for {n_rings} rings of "
+                           f"two 1080p frames")
+    return capacity, free
+
+
+class Producers:
+    """Spawned producer processes, one ring each, started together;
+    every process is stopped on exit."""
+
+    def __init__(self, names, count, fps):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.ready, self.times, self.go = ctx.Queue(), ctx.Queue(), ctx.Event()
+        self.procs = [ctx.Process(target=stream_producer,
+                                  args=(name, si, count, fps, self.ready, self.go, self.times))
+                      for si, name in enumerate(names)]
+
+    def __enter__(self):
+        for p in self.procs:
+            p.start()
+        for _ in self.procs:
+            self.ready.get(timeout=PRODUCER_WAIT_S)
+        return self
+
+    def push_times(self):
+        """Each producer's push times, by stream; then every process joined."""
+        times = dict(self.times.get(timeout=PRODUCER_WAIT_S) for _ in self.procs)
+        for p in self.procs:
+            p.join(timeout=PRODUCER_WAIT_S)
+            require(p.exitcode == 0, f"producer {p.name} exit code {p.exitcode}")
+        return times
+
+    def __exit__(self, *exc):
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=10)
+
+
+def check_stream_results(torch, what, results, kinds):
+    """Every ``(stream, seq, FrameResult)`` against the plain
+    ``analyze_image`` on the card of that frame made again from its
+    seed, 8 frames at a time."""
+    from rgnir_torch.pipeline.fused import analyze_image
+
+    for i in range(0, len(results), STREAM_BATCH):
+        part = results[i:i + STREAM_BATCH]
+        frames = np.stack([stream_frame(si, seq) for si, seq, _ in part])
+        ref = analyze_image(frames, kinds=kinds, with_renders=False, with_hist=False,
+                            device="cuda").stats
+        for j, (si, seq, res) in enumerate(part):
+            for k in kinds:
+                r = ref[k]
+                want = type(r)(**{f: None if getattr(r, f) is None else getattr(r, f)[j]
+                                  for f in r.__dataclass_fields__})
+                check_stats(torch, f"{what} stream {si} frame {seq} {k}", res.stats[k], want,
+                            with_hist=False)
+
+
+def stream_launches(torch, wrappers, what, analyzer, fn):
+    """``fn`` with every kernel's count set to 0 just before and read
+    just after; each dispatch must launch ``STREAM_LAUNCHES``."""
+    d0 = analyzer.dispatches
+    out, launches = count_launches(torch, wrappers, DEFAULT_PATH, what, fn)
+    dispatches = analyzer.dispatches - d0
+    want = {k: v * dispatches for k, v in STREAM_LAUNCHES.items()}
+    require(dispatches > 0 and launches == want,
+            f"{what}: launches {launches} over {dispatches} dispatches, expected {want}")
+    return out, launches, dispatches
+
+
+def stream_checks(torch, wrappers, smi):
+    """Phase 4d: the streaming session on the card, through the
+    entry points a user calls (``FrameRing`` and ``StreamAnalyzer``)."""
+    from rgnir_torch.native import FrameRing
+    from rgnir_torch.pipeline.streaming import StreamAnalyzer
+
+    t_phase = time.perf_counter()
+    shape = STREAM_SHAPE + (3,)
+    mpix = STREAM_SHAPE[0] * STREAM_SHAPE[1] / 1e6
+    tag = f"/rgnir_smoke_{os.getpid()}"
+
+    # (i) four rings, unpaced, into one batched analyzer
+    capacity, shm_free = ring_capacity(STREAM_RINGS)
+    names = [f"{tag}_{si}" for si in range(STREAM_RINGS)]
+    analyzer = StreamAnalyzer(frame_shape=STREAM_SHAPE, kinds=KINDS, batch=STREAM_BATCH)
+    analyzer.warmup()
+    rings = [FrameRing.create(name, shape, capacity) for name in names]
+    try:
+        with Producers(names, STREAM_FRAMES, 0) as producers:
+            def run():
+                t0 = time.perf_counter()
+                producers.go.set()
+                got = list(analyzer.run_from_rings(rings))
+                torch.cuda.synchronize()
+                return got, time.perf_counter() - t0
+            (got, seconds), launches, dispatches = stream_launches(
+                torch, wrappers, "stream (i)", analyzer, run)
+            producers.push_times()
+    finally:
+        for r in rings:
+            r.close()
+    total = STREAM_RINGS * STREAM_FRAMES
+    require(len(got) == total, f"stream (i): {len(got)} of {total} frames")
+    for si in range(STREAM_RINGS):
+        seqs = [seq for s, seq, _ in got if s == si]
+        require(seqs == list(range(STREAM_FRAMES)), f"stream (i): ring {si} in order")
+    require(sorted(r.frame_id for _, _, r in got) == list(range(total)), "stream (i): frame ids")
+    check_stream_results(torch, "stream (i)", got, KINDS)
+    fps = total / seconds
+    log(f"stream (i) {STREAM_RINGS} rings x {STREAM_FRAMES} frames of {STREAM_SHAPE[0]}x"
+        f"{STREAM_SHAPE[1]}, batch {STREAM_BATCH}, kinds {list(KINDS)}, statistics only: all "
+        f"{total} frames in order and equal to the plain path; {fps:.2f} frames/s, "
+        f"{fps * mpix:.1f} MPix/s, {int(fps // 30)} streams of 30 fps; {dispatches} dispatches, "
+        f"launches {launches}; ring capacity {capacity} (/dev/shm free {shm_free} bytes) [{smi}]")
+
+    # (ii) one stream paced at 30 fps, batch 1
+    name = f"{tag}_paced"
+    analyzer = StreamAnalyzer(frame_shape=STREAM_SHAPE, kinds=KINDS, batch=1, depth=2)
+    analyzer.warmup()
+    ready_at = {}
+    with FrameRing.create(name, shape, min(capacity, 4)) as ring:
+        with Producers([name], PACED_FRAMES, PACED_FPS) as producers:
+            def run():
+                producers.go.set()
+                out = []
+                for res in analyzer.run_from_ring(ring):
+                    for s in res.stats.values():  # statistics ready on the host
+                        torch.stack([s.mean, s.median, s.std, s.min, s.max,
+                                     s.coverage_pct]).cpu()
+                    ready_at[res.frame_id] = time.monotonic()
+                    out.append(res)
+                return out
+            paced, launches, dispatches = stream_launches(torch, wrappers, "stream (ii)",
+                                                          analyzer, run)
+            pushed = producers.push_times()[0]
+    require([r.frame_id for r in paced] == list(range(PACED_FRAMES)), "stream (ii): every frame")
+    check_stream_results(torch, "stream (ii)",
+                         [(0, 0, paced[0]), (0, PACED_FRAMES - 1, paced[-1])], KINDS)
+    lat = np.array([ready_at[i] - pushed[i] for i in range(PACED_FRAMES)]) * 1e3
+    slowest = np.argsort(lat)[-3:][::-1]
+    log(f"stream (ii) one stream at {PACED_FPS} fps, {PACED_FRAMES} frames, batch 1, depth 2: "
+        f"every frame, frames 0 and {PACED_FRAMES - 1} equal to the plain path; latency from "
+        f"try_push to statistics on the host p50 {np.percentile(lat, 50):.2f} ms, p99 "
+        f"{np.percentile(lat, 99):.2f} ms, max {lat.max():.2f} ms (slowest frames "
+        f"{', '.join(f'{i}: {lat[i]:.2f}' for i in slowest)}); {dispatches} dispatches [{smi}]")
+
+    # (iii) three frames from two rings into a batch-8 analyzer
+    analyzer = StreamAnalyzer(frame_shape=STREAM_SHAPE, kinds=KINDS, batch=STREAM_BATCH)
+    with FrameRing.create(f"{tag}_p0", shape, 2) as r0, \
+            FrameRing.create(f"{tag}_p1", shape, 2) as r1:
+        for seq in range(2):
+            require(r0.try_push(stream_frame(0, seq)), "stream (iii): push")
+        require(r1.try_push(stream_frame(1, 0)), "stream (iii): push")
+        part, launches, dispatches = stream_launches(
+            torch, wrappers, "stream (iii)", analyzer,
+            lambda: list(analyzer.run_from_rings([r0, r1], max_frames=3)))
+    require([(si, seq) for si, seq, _ in part] == [(0, 0), (1, 0), (0, 1)],
+            "stream (iii): routing")
+    require([r.frame_id for _, _, r in part] == [0, 1, 2] and dispatches == 1,
+            "stream (iii): one partial batch")
+    check_stream_results(torch, "stream (iii)", part, KINDS)
+    log(f"stream (iii) 3 frames from 2 rings into a batch-{STREAM_BATCH} analyzer: one "
+        f"dispatch, routed and equal to the plain path; phase 4d took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del got, paced, part
+    torch.cuda.empty_cache()
+
+
 KERNEL_SOURCES = {
     "hist": ("rgnir_torch/csrc/hist.cu", "rgnir_tpu/kernels/hist.py:39"),
     "fused": ("rgnir_torch/csrc/fused.cu", "rgnir_tpu/kernels/fused.py:78"),
@@ -1228,6 +1484,9 @@ def main() -> int:
     for shape in AWKWARD_SHAPES:
         kernel_checks(torch, timer, rates, shape, timed=False)
     kernel_checks(torch, timer, rates, OFFSET_VIEW_SHAPE, timed=False, skip=1)
+    # the streaming session's batch, in its mode: no histogram, no renders
+    kernel_checks(torch, timer, rates, (STREAM_BATCH,) + STREAM_SHAPE, timed=False,
+                  with_hist=False, with_renders=False)
     other_kind_counts(torch)
     smooth_and_headline(torch, timer, rates, MAIN_SHAPE)
     records.update(validity_checks(torch, timer, rates, MAIN_SHAPE, smi))
@@ -1251,6 +1510,7 @@ def main() -> int:
     path_launches.update(onepass_mode_launches)
     many_kinds_checks(torch, WRAPPERS)
     big_frame_checks(torch, WRAPPERS, smi)
+    stream_checks(torch, WRAPPERS, smi)
 
     # 5. the kernel self-test
     from rgnir_torch.testing import selftest

@@ -14,10 +14,19 @@ from rgnir_torch.config import (
     CustomIndex,
     IndexConfig,
     IndexKind,
+    RenderConfig,
+    TileConfig,
     WBConfig,
     import_index_specs,
     register_index,
     registered_indices,
+)
+from rgnir_torch.ops import (
+    channel_histograms,
+    compute_index,
+    percentiles_from_histogram,
+    render_colormap,
+    white_balance,
 )
 from rgnir_torch.ops.stats import IndexStats, index_stats, to_analyze_index_dict
 from rgnir_torch.pipeline.dispatch import analyze_image_auto
@@ -30,13 +39,20 @@ __all__ = [
     "IndexConfig",
     "IndexKind",
     "IndexStats",
+    "RenderConfig",
+    "TileConfig",
     "WBConfig",
     "analyze_image",
     "analyze_image_auto",
+    "channel_histograms",
+    "compute_index",
     "import_index_specs",
     "index_stats",
+    "percentiles_from_histogram",
     "register_index",
     "registered_indices",
+    "render_colormap",
     "to_analyze_index_dict",
+    "white_balance",
     "__version__",
 ]

@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import re
-from typing import Dict, Iterable, Mapping, Tuple, Union
+from typing import Dict, Iterable, Mapping, Optional, Tuple, Union
 
 
 class IndexKind(str, enum.Enum):
@@ -152,7 +152,13 @@ IndexLike = Union[IndexKind, CustomIndex]
 EPSILON: float = 1e-10
 INDEX_CLIP: Tuple[float, float] = (-1.0, 1.0)
 HIST_BINS: int = 50
+
+# Size caps (all LANCZOS in the reference)
+MAX_STORE_DIM: int = 2048
 MAX_ANALYSIS_DIM: int = 1024
+MAX_ALIGN_DIM: int = 1024
+THUMBNAIL_SIZE: Tuple[int, int] = (400, 400)
+MAX_DOC_MB: float = 16.0        # the document store's size precheck
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,3 +181,58 @@ class IndexConfig:
     vegetation_threshold: float = 0.2
     water_threshold: float = 0.0
     hist_bins: int = HIST_BINS
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Colormap render contract: vmin/vmax are the imshow limits; change
+    maps use bwr with +/-0.5."""
+
+    vmin: float = -1.0
+    vmax: float = 1.0
+    change_cmap: str = "bwr"
+    change_vlim: float = 0.5
+    dpi: int = 100
+
+
+@dataclasses.dataclass(frozen=True)
+class TileConfig:
+    """Spatial tiling of mosaics sharded over a device mesh. The block
+    fields are the JAX package's kernel blocks, kept so that a
+    configuration reads the same in both packages."""
+
+    tile_h: int = 512
+    tile_w: int = 512
+    block_h: int = 256
+    block_w: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class LoaderConfig:
+    """Host-side decode and encode pools."""
+
+    decode_workers: int = 8
+    encode_workers: int = 4
+    prefetch_batches: int = 2
+    batch_size: int = 32
+    # Probe headers first, then decode whole same-shape batches into one
+    # contiguous arena with the native decoder.
+    arena_decode: bool = True
+    # When set, decoded arrays are cached as raw .npy blobs here.
+    decode_cache_dir: Optional[str] = None
+    decode_cache_max_bytes: int = 2 << 30
+
+
+@dataclasses.dataclass(frozen=True)
+class StoreConfig:
+    """Storage backend settings."""
+
+    mongo_uri: Optional[str] = None
+    max_pool_size: int = 3
+    max_idle_time_ms: int = 30000
+    server_selection_timeout_ms: int = 5000
+    connect_timeout_ms: int = 10000
+    socket_timeout_ms: int = 30000
+    max_doc_mb: float = MAX_DOC_MB
+    max_store_dim: int = MAX_STORE_DIM
+    images_per_page: int = 12

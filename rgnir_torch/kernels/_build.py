@@ -4,24 +4,23 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, under ``build/rgnir_torch_kernels/``
 beside the package (never inside it), and loads with ctypes. A library's
 file name carries a hash of its sources and flags, so an edited source
-is rebuilt and an unchanged one is reused. Nothing builds at import:
-the first launch of a kernel builds its library, and :func:`build`
-builds several at once, one ``nvcc`` process per source.
+is rebuilt and an unchanged one is reused (the policy of
+:mod:`rgnir_torch._shlib`). Nothing builds at import: the first launch
+of a kernel builds its library, and :func:`build` builds several at
+once, one ``nvcc`` process per source.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
 from typing import Dict, Iterable
 
 import torch
+
+from rgnir_torch import _shlib
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rgnir_torch_kernels"
@@ -32,7 +31,6 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -48,10 +46,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return _shlib.library_path(BUILD_DIR, name, NVCC_FLAGS,
+                               (CSRC / f"{name}.cu", CSRC / "common.cuh"))
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
@@ -61,44 +57,23 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     ``nvcc``'s report (registers, shared memory, spills) goes to a
     ``.log`` file beside each library. Raises if any build fails.
     """
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    started = {}
-    seconds = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            seconds[name] = 0.0
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        started[name] = (proc, tmp, out, time.perf_counter())
-    failures = []
-    for name, (proc, tmp, out, t0) in started.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log[-3000:]}")
-            continue
-        os.replace(tmp, out)
-    if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
-    return seconds
+    return _shlib.build(nvcc(), NVCC_FLAGS, BUILD_DIR,
+                        {name: (CSRC / f"{name}.cu", library_path(name)) for name in names})
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.rgnir_error_string.argtypes = [ctypes.c_int]
+    lib.rgnir_error_string.restype = ctypes.c_char_p
+
+
+def _build_one(name: str) -> Path:
+    build([name])
+    return library_path(name)
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            lib.rgnir_error_string.argtypes = [ctypes.c_int]
-            lib.rgnir_error_string.restype = ctypes.c_char_p
-            _LIBS[name] = lib
-        return lib
+    return _shlib.load(_LIBS, name, lambda: _build_one(name), _declare)
 
 
 def launch(name: str, symbol: str, argtypes, args, device) -> None:

@@ -40,12 +40,15 @@ def planar_histograms(
     return out.to(torch.int32).reshape(lead + (NUM_LEVELS,))
 
 
-def channel_histograms(img: torch.Tensor) -> torch.Tensor:
+def channel_histograms(
+    img: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """Per-channel counts of an interleaved ``(..., H, W, C)`` uint8
-    image: ``(..., C, 256)`` int32."""
+    image: ``(..., C, 256)`` int32. ``mask``, ``(..., H, W)`` bool,
+    counts only the pixels where it is true."""
     if img.dim() < 3:
         raise ValueError(f"expected (..., H, W, C), got shape {tuple(img.shape)}")
-    return planar_histograms(img.movedim(-1, -3))
+    return planar_histograms(img.movedim(-1, -3), mask)
 
 
 def _lerp_numpy(a: torch.Tensor, b: torch.Tensor, t: float) -> torch.Tensor:
@@ -84,3 +87,12 @@ def percentiles_from_histogram(
             a_k1 = (cdf <= k1).sum(dim=-1).to(torch.float32)
             outs.append(_lerp_numpy(a_k, a_k1, d))
     return torch.stack(outs, dim=-1)
+
+
+def order_statistic_from_histogram(
+    hist: torch.Tensor, rank: torch.Tensor
+) -> torch.Tensor:
+    """The ``rank``-th (0-indexed) smallest level of ``(..., L)``
+    counts, as float32; ``rank`` broadcasts against the counts' cdf."""
+    cdf = torch.cumsum(hist.to(torch.int64), dim=-1)
+    return (cdf <= rank).sum(dim=-1).to(torch.float32)

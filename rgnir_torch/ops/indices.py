@@ -4,7 +4,7 @@ Counterpart: ``rgnir_tpu/ops/indices.py``."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple, Union
 
 import torch
 
@@ -34,3 +34,21 @@ def index_from_bands(
     a = a.to(torch.float32)
     b = b.to(torch.float32)
     return ((a - b) / (a + b + cfg.eps)).clamp(cfg.clip_lo, cfg.clip_hi)
+
+
+def compute_index(
+    img: torch.Tensor, kind: Union[IndexKind, str], cfg: IndexConfig = IndexConfig()
+) -> torch.Tensor:
+    """Index map of an ``(..., H, W, C)`` image: ``(..., H, W)`` float32.
+    An unknown ``kind`` raises ``ValueError``."""
+    ia, ib = band_indices(IndexKind.parse(kind))
+    return index_from_bands(img[..., ia], img[..., ib], cfg)
+
+
+def compute_indices(
+    img: torch.Tensor,
+    kinds: Sequence[Union[IndexKind, str]],
+    cfg: IndexConfig = IndexConfig(),
+) -> Tuple[torch.Tensor, ...]:
+    """The index maps of ``kinds``, in their order."""
+    return tuple(compute_index(img, k, cfg) for k in kinds)

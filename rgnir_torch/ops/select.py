@@ -18,6 +18,8 @@ of the selected key sit at ranks >= k, else the least element above it.
 Sharded data is a list of shards: each round counts every shard and
 sums the counts (``psum``), and the closing mins take ``pmin``, as the
 JAX package does over a mesh axis.
+:func:`exact_quantiles` takes linear-interpolated percentiles of
+float32 data, one adjacent-rank select per quantile.
 Counterparts: ``rgnir_tpu/ops/select.py`` (f32 key) and the q24 path of
 ``rgnir_tpu/kernels/select.py``; the kernel path is
 ``rgnir_torch/kernels/select.py``.
@@ -227,3 +229,40 @@ def masked_median(
     nxt = masked_min(xs, _where_key(keys, acts, kp, above=True), inf)
     hi = torch.where(eq_minus_rank >= 2, lo, nxt)
     return ((lo + hi) * 0.5).reshape(batch)
+
+
+def exact_quantiles(
+    vals: Shards,
+    qs: Sequence[float],
+    n_valid: int,
+    mask: Optional[Shards] = None,
+    reduce_ndim: int = 1,
+) -> torch.Tensor:
+    """Exact percentiles ``qs`` of float32 ``vals`` over their last
+    ``reduce_ndim`` axes (leading axes batch), with ``np.percentile``'s
+    linear semantics: for each q the rank ``k = floor(q/100*(n-1))`` and
+    its gamma are computed on the host in Python float64, and the lerp
+    between ``a[k]`` and ``a[k+1]`` runs in float32 (numpy's two-sided
+    form). ``vals`` is a tensor or a list of shards reduced together
+    (the JAX package's ``axis_name``), with ``mask`` (bool, broadcast to
+    ``vals``) one tensor or one per shard; ``n_valid`` is the count of
+    valid elements per row, over every shard.
+
+    Each quantile is one :func:`adjacent_order_statistics` select, so
+    the extra memory is O(N) per quantile, never (len(qs), N).
+
+    Returns ``batch + (len(qs),)`` float32.
+    Counterpart: ``rgnir_tpu/ops/select.py`` ``exact_quantiles``.
+    """
+    out = []
+    for q in qs:
+        vi = (float(q) / 100.0) * (n_valid - 1)
+        k = math.floor(vi)
+        lo, hi = adjacent_order_statistics(vals, k, mask, reduce_ndim)
+        t = torch.tensor(vi - k, dtype=torch.float32, device=lo.device)
+        if vi == k:  # a[k] itself (past the last element the neighbour is NaN)
+            out.append(lo)
+            continue
+        diff = hi - lo
+        out.append(hi - diff * (1.0 - t) if float(t) >= 0.5 else lo + diff * t)
+    return torch.stack(out, dim=-1)

@@ -104,3 +104,15 @@ def to_analyze_index_dict(
         f"Max {kind.value}": float(stats.max),
         f"{kind.feature_name} Coverage (%)": float(stats.coverage_pct),
     }
+
+
+def to_ndvi_report_dict(stats: IndexStats) -> Dict[str, float]:
+    """The dict of the reference's NDVI report."""
+    return {
+        "mean_ndvi": float(stats.mean),
+        "median_ndvi": float(stats.median),
+        "min_ndvi": float(stats.min),
+        "max_ndvi": float(stats.max),
+        "std_ndvi": float(stats.std),
+        "vegetation_coverage": float(stats.coverage_pct),
+    }

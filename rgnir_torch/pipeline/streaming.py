@@ -1,0 +1,283 @@
+"""Streaming session analysis: frames of a fixed shape from one or more
+producers, batched into the kernel path (BASELINE config 4: 1080p
+frames, three indices and per-frame statistics).
+
+``StreamAnalyzer`` copies each frame into a pinned staging slot of
+``(batch, H, W, 3)`` bytes, and a full slot goes to the device with one
+asynchronous copy and one call of
+:func:`rgnir_torch.pipeline.dispatch.analyze_image_auto`. ``submit``
+returns at once; results come out ``depth`` batches behind, so the host
+stages the next frames while the device works. Each result holds
+per-frame views of the batch's statistics on the device, read when the
+caller reads them. ``run_from_rings`` and ``run_from_ring`` pop frames
+from shared-memory rings (``rgnir_torch.native.FrameRing``) straight
+into the staging slot. Counterpart: ``rgnir_tpu/pipeline/streaming.py``.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Deque, Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from rgnir_torch.config import ALL_INDICES, IndexKind
+from rgnir_torch.ops.stats import IndexStats
+from rgnir_torch.pipeline.dispatch import analyze_image_auto
+from rgnir_torch.pipeline.fused import resolve_device
+
+
+@dataclasses.dataclass
+class FrameResult:
+    frame_id: int
+    stats: Dict[str, IndexStats]                # device scalars, read lazily
+    renders: Optional[Dict[str, torch.Tensor]]  # (H, W, 3) uint8 on the device
+
+
+def _frame_stats(stats: IndexStats, j: int) -> IndexStats:
+    """Frame ``j`` of a batch's statistics (a histogram of None stays None)."""
+    return IndexStats(**{
+        f.name: None if getattr(stats, f.name) is None else getattr(stats, f.name)[j]
+        for f in dataclasses.fields(IndexStats)
+    })
+
+
+class StreamAnalyzer:
+    """Fixed-shape streaming analyzer with ``depth``-deep pipelining.
+
+    ``batch`` > 1 groups frames (of one high-rate stream or of several
+    multiplexed ones) into one dispatch; results keep per-frame
+    granularity, one ``FrameResult`` per frame. A frame waits for its
+    batch to fill, so keep ``batch`` <= streams x fps x latency budget.
+
+    Staging: ``depth + 1`` slots of ``(batch, H, W, 3)`` uint8, pinned
+    when the device is CUDA, allocated once. A full slot goes to the
+    device with ``non_blocking=True`` and records a CUDA event; filling
+    the slot again first waits for that event, so a copy in flight never
+    reads bytes of a later batch. On the CPU a slot is analysed in place,
+    synchronously.
+
+    ``device`` is CUDA unless the caller names another; without CUDA the
+    default raises.
+    """
+
+    def __init__(
+        self,
+        frame_shape: Tuple[int, int] = (1080, 1920),
+        kinds: Sequence[Union[IndexKind, str]] = ALL_INDICES,
+        with_renders: bool = False,
+        depth: int = 2,
+        batch: int = 1,
+        with_hist: bool = False,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        self.device = resolve_device(device)
+        self.kinds = tuple(IndexKind.parse(k).value for k in kinds)
+        self.with_renders = with_renders
+        self.with_hist = with_hist
+        self.frame_shape = tuple(frame_shape)
+        self.depth = depth
+        self.batch = max(1, int(batch))
+        self.dispatches = 0  # batches sent to the device
+        pin = self.device.type == "cuda"
+        self._slots = [
+            torch.empty((self.batch,) + self.frame_shape + (3,), dtype=torch.uint8,
+                        pin_memory=pin)
+            for _ in range(depth + 1)
+        ]
+        self._slot_np = [s.numpy() for s in self._slots]
+        self._copied = [None] * len(self._slots)  # the CUDA event of each slot's copy
+        self._slot = 0       # the slot being filled
+        self._n_staged = 0   # frames in it
+        self._inflight: Deque[FrameResult] = collections.deque()
+        self._next_id = 0
+
+    def _step(self, frames: torch.Tensor):
+        res = analyze_image_auto(frames, kinds=self.kinds, with_renders=self.with_renders,
+                                 with_hist=self.with_hist, device=self.device)
+        return res.stats, res.renders
+
+    def warmup(self) -> None:
+        """Build the kernels (on CUDA) and analyse one batch of zeros, so
+        that the first real frame does not pay for either."""
+        zeros = torch.zeros((self.batch,) + self.frame_shape + (3,), dtype=torch.uint8,
+                            device=self.device)
+        self._step(zeros)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _stage_row(self) -> np.ndarray:
+        """The row of the current slot that the next frame fills. The
+        slot's first frame waits until its last copy to the device ended."""
+        if self._n_staged == 0 and self._copied[self._slot] is not None:
+            self._copied[self._slot].synchronize()
+            self._copied[self._slot] = None
+        return self._slot_np[self._slot][self._n_staged]
+
+    def _dispatch_staged(self) -> None:
+        """Analyse the staged frames (those of a partial batch too) and
+        queue one result per frame."""
+        n = self._n_staged
+        block = self._slots[self._slot][:n]
+        if self.device.type == "cuda":
+            block = block.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            self._copied[self._slot] = event
+        stats, renders = self._step(block)
+        self.dispatches += 1
+        self._slot = (self._slot + 1) % len(self._slots)
+        self._n_staged = 0
+        for j in range(n):
+            self._inflight.append(FrameResult(
+                self._next_id,
+                {k: _frame_stats(s, j) for k, s in stats.items()},
+                {k: v[j] for k, v in renders.items()} if self.with_renders else None,
+            ))
+            self._next_id += 1
+
+    def _commit(self) -> Optional[FrameResult]:
+        """Count the frame just staged; dispatch a full slot; return the
+        oldest result once more than ``depth`` batches are in flight."""
+        self._n_staged += 1
+        if self._n_staged == self.batch:
+            self._dispatch_staged()
+        if len(self._inflight) > self.depth * self.batch:
+            return self._inflight.popleft()
+        return None
+
+    def submit(self, frame: np.ndarray) -> Optional[FrameResult]:
+        """Stage a ``frame_shape + (3,)`` uint8 frame; returns the oldest
+        completed result once the pipeline is full (None while filling)."""
+        if frame.shape != self.frame_shape + (3,):
+            raise ValueError(f"frame shape {frame.shape} != {self.frame_shape + (3,)}")
+        if frame.dtype != np.uint8:
+            raise TypeError(f"frame dtype {frame.dtype} != uint8")
+        self._stage_row()[...] = frame
+        return self._commit()
+
+    def flush_partial(self) -> None:
+        """Dispatch a partially filled batch now (the latency policy's
+        hook); nothing happens when nothing is staged. The partial batch
+        is analysed at its own size (the kernels compile no shape), so
+        frame ids go on from the last real frame, as the JAX package's
+        do after it drops its padding frames."""
+        if self._n_staged:
+            self._dispatch_staged()
+
+    def pop_ready(self):
+        """Yield the results beyond the pipelining depth (never waits on
+        the device: results are read lazily)."""
+        while len(self._inflight) > self.depth * self.batch:
+            yield self._inflight.popleft()
+
+    def drain(self):
+        """Flush a partial batch, then yield every remaining result."""
+        self.flush_partial()
+        while self._inflight:
+            yield self._inflight.popleft()
+
+    def run_from_rings(
+        self,
+        rings: Sequence,
+        max_frames: Optional[int] = None,
+        idle_sleep_s: float = 0.0005,
+        max_latency_s: float = 0.05,
+    ):
+        """Demultiplex producer rings into this (batched) analyzer,
+        yielding ``(ring index, per-ring sequence number, FrameResult)``.
+        A ring is anything with ``try_pop(out=)`` and ``eof``, such as
+        ``rgnir_torch.native.FrameRing``; each frame is popped straight
+        into the staging slot.
+
+        Policies (those of the JAX package):
+          - fairness: round robin, at most one frame per ring per sweep,
+            so a fast producer cannot starve a slow one, and each ring's
+            order is kept (ring order is submission order is result
+            order);
+          - latency: a partial batch that has waited longer than
+            ``max_latency_s`` while no ring had a frame is dispatched
+            rather than held until the batch fills;
+          - end of stream: a ring retires after its producer's
+            ``finish()`` is seen and one more pop finds it empty (the
+            ring's release/acquire ordering means no frame is missed).
+            The generator ends when every ring has retired, or after
+            ``max_frames`` frames in all.
+        """
+        n_rings = len(rings)
+        seqs = [0] * n_rings
+        eof_seen = [False] * n_rings
+        done = [False] * n_rings
+        order: Deque[Tuple[int, int]] = collections.deque()
+        consumed = 0
+        staged_since: Optional[float] = None
+
+        def route(result):
+            si, seq = order.popleft()
+            return si, seq, result
+
+        while not all(done):
+            if max_frames is not None and consumed >= max_frames:
+                break
+            progress = False
+            for si, ring in enumerate(rings):
+                if done[si]:
+                    continue
+                if ring.try_pop(out=self._stage_row()) is None:
+                    if eof_seen[si]:
+                        done[si] = True
+                    elif ring.eof:
+                        eof_seen[si] = True  # pop once more next sweep
+                    continue
+                eof_seen[si] = False
+                progress = True
+                order.append((si, seqs[si]))
+                seqs[si] += 1
+                consumed += 1
+                if staged_since is None:
+                    staged_since = time.monotonic()
+                result = self._commit()
+                if not self._n_staged:
+                    staged_since = None
+                if result is not None:
+                    yield route(result)
+                if max_frames is not None and consumed >= max_frames:
+                    break
+            if not progress:
+                if (staged_since is not None
+                        and time.monotonic() - staged_since > max_latency_s):
+                    self.flush_partial()
+                    staged_since = None
+                    for r in self.pop_ready():
+                        yield route(r)
+                elif not all(done):
+                    time.sleep(idle_sleep_s)
+        for r in self.drain():
+            yield route(r)
+
+    def run_from_ring(self, ring, max_frames: Optional[int] = None,
+                      idle_sleep_s: float = 0.0005):
+        """Consume one ring, yielding results as the pipeline produces
+        them. Stops after ``max_frames`` frames, or, with
+        ``max_frames=None``, when the producer has called ``finish()``
+        and one more pop finds the ring empty."""
+        consumed = 0
+        eof_seen = False
+        while max_frames is None or consumed < max_frames:
+            if ring.try_pop(out=self._stage_row()) is None:
+                if eof_seen:
+                    break  # an empty pop after eof: the stream is done
+                if max_frames is None and ring.eof:
+                    eof_seen = True  # frames pushed before finish() come first
+                    continue
+                time.sleep(idle_sleep_s)
+                continue
+            eof_seen = False
+            consumed += 1
+            result = self._commit()
+            if result is not None:
+                yield result
+        yield from self.drain()

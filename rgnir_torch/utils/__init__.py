@@ -1,0 +1,6 @@
+"""Host utilities: structured logging and stage timing / device traces."""
+
+from rgnir_torch.utils.logging import get_logger, log_image_record
+from rgnir_torch.utils.profiling import StageTimer, device_trace
+
+__all__ = ["StageTimer", "device_trace", "get_logger", "log_image_record"]

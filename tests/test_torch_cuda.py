@@ -11,6 +11,9 @@ min, max and the median; index maps within 1.2e-7; mean within 1e-5;
 variance within 1e-4.
 """
 
+import os
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -353,3 +356,48 @@ def test_cuda_frame_above_2_29_pixels(cuda):
     versions in bands, and the mosaic's kernel body on one shard against
     four: chip_smoke.py's phase."""
     chip_smoke.big_frame_checks(torch, tk.WRAPPERS, "")
+
+
+@pytest.mark.cuda
+def test_cuda_stream_rings_match_plain(cuda):
+    """Two rings, fed by producer threads, push 1080p frames into a
+    batch-8 analyzer on the card with two pinned staging slots (depth
+    1): at least five dispatches (more where the latency policy sends a
+    partial batch), so each slot is filled again at least twice after
+    its copy to the device. Every frame's statistics equal the plain
+    path's for that frame, and each dispatch launches hist, fused,
+    byte_hist twice and q24_tail."""
+    import threading
+
+    from rgnir_torch.native import FrameRing
+    from rgnir_torch.pipeline.streaming import StreamAnalyzer
+
+    per_ring, shape = 20, chip_smoke.STREAM_SHAPE + (3,)
+    analyzer = StreamAnalyzer(frame_shape=chip_smoke.STREAM_SHAPE, kinds=KINDS, batch=8,
+                              depth=1)
+    assert len(analyzer._slots) == 2 and analyzer._slots[0].is_pinned()
+
+    frames = [[chip_smoke.stream_frame(si, seq) for seq in range(per_ring)] for si in range(2)]
+
+    def produce(ring, si):
+        for frame in frames[si]:
+            while not ring.try_push(frame):
+                time.sleep(0.0002)
+        ring.finish()
+
+    names = [f"/rgnir_cuda_stream_{os.getpid()}_{si}" for si in range(2)]
+    with FrameRing.create(names[0], shape, 2) as r0, FrameRing.create(names[1], shape, 2) as r1:
+        threads = [threading.Thread(target=produce, args=(r, si)) for si, r in enumerate((r0, r1))]
+        for t in threads:
+            t.start()
+        got, launches, dispatches = chip_smoke.stream_launches(
+            torch, tk.WRAPPERS, "stream", analyzer,
+            lambda: list(analyzer.run_from_rings([r0, r1])))
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+    assert dispatches >= 2 * len(analyzer._slots) + 1
+    for si in range(2):
+        assert [seq for s, seq, _ in got if s == si] == list(range(per_ring))
+    assert [r.frame_id for _, _, r in got] == list(range(2 * per_ring))
+    chip_smoke.check_stream_results(torch, "stream", got, KINDS)

@@ -298,7 +298,10 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'rgnir_tpu', 'matplotlib', 'PIL')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 16, names\n"
+        "assert len(names) >= 32, names\n"
+        "for name in ('native.ring', 'native._build', 'utils.logging', 'utils.profiling',\n"
+        "             'pipeline.streaming'):\n"
+        "    assert 'rgnir_torch.' + name in names, name\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -1,0 +1,215 @@
+"""The port's streaming session (rgnir_torch.pipeline.streaming) against
+the JAX package's (rgnir_tpu.pipeline.streaming), on the CPU.
+
+The same numpy frames go through both analyzers: the frame ids must be
+identical and in order, the statistics equal under tests/torch_parity.py's
+contract (exact min, max, median, coverage count and n; mean within
+1e-5; variance within 1e-4), the renders equal byte for byte. The ring
+tests push from spawned producer processes, as tests/test_native.py
+does for the JAX package.
+"""
+
+import multiprocessing as mp
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from rgnir_tpu.pipeline.streaming import StreamAnalyzer as JaxStreamAnalyzer
+from rgnir_torch.native import FrameRing
+from rgnir_torch.pipeline import streaming as tstreaming
+from rgnir_torch.pipeline.streaming import StreamAnalyzer
+from torch_parity import assert_stats_match, host
+from torch_producers import push_random, push_striped, random_frames, striped_frame
+
+_PID = os.getpid()
+SHAPE = (48, 64)
+JOIN_S = 60
+
+
+def _frames(count=10, seed=3):
+    return np.random.default_rng(seed).integers(0, 256, (count,) + SHAPE + (3,),
+                                                dtype=np.uint8)
+
+
+def _submit_all(analyzer, frames):
+    out = []
+    for f in frames:
+        r = analyzer.submit(f)
+        if r is not None:
+            out.append(r)
+    return out + list(analyzer.drain())
+
+
+def _assert_results_match(got, want, kinds, with_renders):
+    assert [r.frame_id for r in got] == [r.frame_id for r in want]
+    for g, w in zip(got, want):
+        assert list(g.stats) == list(kinds)
+        for k in kinds:
+            assert_stats_match(g.stats[k], w.stats[k], with_hist=False)
+        if with_renders:
+            assert list(g.renders) == list(kinds)
+            for k in kinds:
+                np.testing.assert_array_equal(host(g.renders[k]), host(w.renders[k]))
+        else:
+            assert g.renders is None and w.renders is None
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("with_renders", [False, True])
+def test_stream_matches_jax(batch, with_renders):
+    kinds = ("NDVI", "GNDVI", "NDWI")
+    frames = _frames()
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=kinds, with_renders=with_renders,
+                          depth=2, batch=batch, device="cpu")
+    ref = JaxStreamAnalyzer(frame_shape=SHAPE, kinds=kinds, with_renders=with_renders,
+                            depth=2, batch=batch)
+    port.warmup()
+    ref.warmup()
+    got, want = _submit_all(port, frames), _submit_all(ref, frames)
+    assert [r.frame_id for r in got] == list(range(len(frames)))
+    _assert_results_match(got, want, kinds, with_renders)
+    assert port.dispatches == -(-len(frames) // batch)
+
+
+def test_results_come_out_depth_batches_behind():
+    """``submit`` returns None until more than ``depth`` batches are in
+    flight, then the oldest result, as the JAX package's does."""
+    frames = _frames(7)
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=("NDVI",), depth=1, batch=2,
+                          device="cpu")
+    ref = JaxStreamAnalyzer(frame_shape=SHAPE, kinds=("NDVI",), depth=1, batch=2)
+    got = [port.submit(f) for f in frames]
+    want = [ref.submit(f) for f in frames]
+    assert [None if r is None else r.frame_id for r in got] == \
+        [None if r is None else r.frame_id for r in want] == \
+        [None, None, None, 0, 1, 2, 3]
+
+
+def test_flush_partial_and_drain():
+    """A partial batch flushed by ``flush_partial`` and another by
+    ``drain``: every frame once, ids in order with none for padding,
+    the statistics those of the JAX package (which pads with zeros)."""
+    frames = _frames(9, seed=5)
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=("NDVI", "NDWI"), depth=2, batch=4,
+                          device="cpu")
+    ref = JaxStreamAnalyzer(frame_shape=SHAPE, kinds=("NDVI", "NDWI"), depth=2, batch=4)
+
+    def run(a):
+        out = [a.submit(f) for f in frames[:6]]
+        a.flush_partial()
+        a.flush_partial()  # nothing staged: harmless
+        out += list(a.pop_ready())
+        out += [a.submit(f) for f in frames[6:]]
+        return [r for r in out if r is not None] + list(a.drain())
+
+    got, want = run(port), run(ref)
+    assert [r.frame_id for r in got] == list(range(9))
+    _assert_results_match(got, want, ("NDVI", "NDWI"), with_renders=False)
+    assert port.dispatches == 3  # 4, 2 (flushed) and 3 (drained)
+
+
+def test_submit_refuses_wrong_frames():
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=("NDVI",), device="cpu")
+    with pytest.raises(ValueError):
+        port.submit(np.zeros((SHAPE[0], SHAPE[1] + 1, 3), np.uint8))
+    with pytest.raises(TypeError):
+        port.submit(np.zeros(SHAPE + (3,), np.float32))
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    """Without CUDA the default analyzer raises: nothing falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamAnalyzer(frame_shape=SHAPE)
+
+
+def test_run_from_ring_ends_on_eof():
+    """``finish()`` after the last push ends an unbounded consumer with
+    every frame delivered, each with the statistics of the JAX
+    package's analyzer on the same frames."""
+    shape, count = SHAPE + (3,), 7
+    name = f"/rgnir_torch_stream_eof_{_PID}"
+    with FrameRing.create(name, shape, capacity=4) as ring:
+        proc = mp.get_context("spawn").Process(target=push_random,
+                                               args=(name, shape, count, True))
+        proc.start()
+        port = StreamAnalyzer(frame_shape=SHAPE, kinds=("NDVI",), device="cpu")
+        got = list(port.run_from_ring(ring))  # must end
+        proc.join(timeout=JOIN_S)
+        assert not proc.is_alive() and proc.exitcode == 0
+    assert [r.frame_id for r in got] == list(range(count))
+    ref = JaxStreamAnalyzer(frame_shape=SHAPE, kinds=("NDVI",))
+    _assert_results_match(got, _submit_all(ref, random_frames(shape, count)), ("NDVI",),
+                          with_renders=False)
+
+
+def test_multi_ring_demux_ordered_lossless():
+    """Four producer processes -> four rings -> one batch-8 analyzer:
+    every frame of every stream, in per-stream order, routed to its
+    stream, as the frame's content shows (coverage encodes (stream,
+    sequence number))."""
+    shape, count, n_streams = (32, 16, 3), 5, 4
+    ctx = mp.get_context("spawn")
+    rings, procs = [], []
+    try:
+        for si in range(n_streams):
+            name = f"/rgnir_torch_demux_{_PID}_{si}"
+            rings.append(FrameRing.create(name, shape, capacity=3))
+            p = ctx.Process(target=push_striped, args=(name, shape, count, si))
+            p.start()
+            procs.append(p)
+        port = StreamAnalyzer(frame_shape=shape[:2], kinds=("NDVI",), batch=8, device="cpu")
+        got = list(port.run_from_rings(rings, max_latency_s=0.02))
+        for p in procs:
+            p.join(timeout=JOIN_S)
+            assert not p.is_alive() and p.exitcode == 0
+    finally:
+        for r in rings:
+            r.close()
+    assert len(got) == n_streams * count
+    assert sorted(r.frame_id for _, _, r in got) == list(range(n_streams * count))
+    for si in range(n_streams):
+        seqs = [seq for s, seq, _ in got if s == si]
+        assert seqs == list(range(count)), f"stream {si} order"
+    for si, seq, res in got:
+        k = round(float(res.stats["NDVI"].coverage_pct) * shape[0] / 100.0)
+        assert k == 3 * si + seq + 1, (si, seq)
+
+
+def test_multi_ring_partial_batch_via_max_frames():
+    """A batch-8 analyzer fed three frames from two rings delivers all
+    three, routed to their rings, with the JAX package's statistics."""
+    shape = (32, 16, 3)
+    with FrameRing.create(f"/rgnir_torch_demux_p0_{_PID}", shape, capacity=4) as r0, \
+            FrameRing.create(f"/rgnir_torch_demux_p1_{_PID}", shape, capacity=4) as r1:
+        for seq in range(2):
+            assert r0.try_push(striped_frame(shape, 0, seq))
+        assert r1.try_push(striped_frame(shape, 1, 0))
+        port = StreamAnalyzer(frame_shape=shape[:2], kinds=("NDVI",), batch=8, device="cpu")
+        got = list(port.run_from_rings([r0, r1], max_frames=3))
+    assert [(si, seq) for si, seq, _ in got] == [(0, 0), (1, 0), (0, 1)]
+    assert [r.frame_id for _, _, r in got] == [0, 1, 2]
+    assert port.dispatches == 1
+    ref = JaxStreamAnalyzer(frame_shape=shape[:2], kinds=("NDVI",), batch=8)
+    want = _submit_all(ref, [striped_frame(shape, si, seq) for si, seq, _ in got])
+    _assert_results_match([r for _, _, r in got], want, ("NDVI",), with_renders=False)
+
+
+def test_frame_results_are_views_of_the_batch():
+    """Each result's statistics are the batch's, frame by frame; the
+    histogram stays None without ``with_hist``."""
+    frames = _frames(4, seed=8)
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=("GNDVI",), batch=4, device="cpu")
+    got = _submit_all(port, frames)
+    from rgnir_torch.pipeline.fused import analyze_image
+
+    want = analyze_image(frames, kinds=("GNDVI",), with_renders=False, with_hist=False,
+                         device="cpu").stats["GNDVI"]
+    for j, r in enumerate(got):
+        s = r.stats["GNDVI"]
+        assert s.histogram is None
+        for field in ("mean", "median", "std", "min", "max", "coverage_pct", "n"):
+            assert getattr(s, field).shape == ()
+        assert_stats_match(s, tstreaming._frame_stats(want, j), with_hist=False)

@@ -3,7 +3,7 @@
 
     python3 tools/profile_torch_path.py [--batch 8] [--size 1024] [--calls 5]
                                         [--mosaic 8192] [--only-mosaic] [--onepass]
-                                        [--package-root DIR]
+                                        [--stream] [--package-root DIR]
 
 For each configuration of chip_smoke.py's path phase (NDVI, GNDVI and
 NDWI with renders and the 50-bin histogram; NDVI alone without the
@@ -28,6 +28,16 @@ shards of the card; ``--only-mosaic`` skips the frame configurations.
 A Chrome trace of each window goes to ``build/torch_path_traces/``.
 ``--onepass`` also times the one-pass select kernel on chip_smoke.py's
 three inputs at the (a1) path's rows (``time_onepass``).
+``--stream`` profiles the streaming session instead of the frame
+configurations: a ``StreamAnalyzer`` of chip_smoke.py's phase 4d (batch
+8 of 1080 x 1920 frames, three kinds, statistics only) takes 8 frames by
+``submit`` (into its pinned staging slot) and ``drain``s them: one
+dispatch per call, with its copy to the device ("Memcpy HtoD") among the
+device rows. Then it runs chip_smoke.py's four-ring session (four
+spawned producers, 24 frames each, unpaced) twice, the second time under
+``cProfile`` on the consumer: frames/s of each run, and the consumer's
+host functions by own time (``FrameRing.try_pop`` is the copy out of
+shared memory into the pinned slot).
 ``--package-root DIR`` profiles the ``rgnir_torch`` package of another
 tree (a parent's ``git archive``) with this tree's tool and
 ``chip_smoke.py`` helpers, so that a parent and a change run in turns
@@ -64,6 +74,69 @@ def time_onepass(torch, cs, shape):
         _, sel0, rank1, means = cs.onepass_setup(torch, rows)
         ms = timer.kernel(lambda: ks.q24_onepass(rows, sel0, rank1, means))
         print(f"  q24_onepass {label} {tuple(rows.shape)}: {ms:.4f} ms", flush=True)
+
+
+def profile_stream_session(torch, cs, smi):
+    """chip_smoke.py's four-ring session, unprofiled and then under
+    cProfile on the consumer: frames/s, and the consumer's host time by
+    function."""
+    import cProfile
+    import pstats
+
+    from rgnir_torch.native import FrameRing
+    from rgnir_torch.pipeline.streaming import StreamAnalyzer
+
+    capacity, _ = cs.ring_capacity(cs.STREAM_RINGS)
+    analyzer = StreamAnalyzer(frame_shape=cs.STREAM_SHAPE, kinds=cs.KINDS, batch=cs.STREAM_BATCH)
+    analyzer.warmup()
+    shape = cs.STREAM_SHAPE + (3,)
+    # the consumer's one host copy, alone: numpy into a pinned row, and a
+    # pop from a ring filled in this process (no producer running)
+    frame, row = cs.stream_frame(0, 0), analyzer._slot_np[0][0]
+    t0 = time.perf_counter()
+    for _ in range(20):
+        np.copyto(row, frame)
+    copy_s = (time.perf_counter() - t0) / 20
+    with FrameRing.create(f"/rgnir_profile_{os.getpid()}_alone", shape, 4) as ring:
+        pop_s = 0.0
+        for _ in range(5):
+            for _ in range(4):
+                ring.try_push(frame)
+            t0 = time.perf_counter()
+            for _ in range(4):
+                ring.try_pop(out=row)
+            pop_s += time.perf_counter() - t0
+        pop_s /= 20
+    print(f"\none {shape[0]}x{shape[1]} frame ({frame.nbytes} bytes) into a pinned slot row, "
+          f"no producer "
+          f"running: numpy copy {copy_s * 1e3:.3f} ms ({frame.nbytes / copy_s / 1e9:.2f} GB/s), "
+          f"FrameRing.try_pop {pop_s * 1e3:.3f} ms ({frame.nbytes / pop_s / 1e9:.2f} GB/s) [{smi}]",
+          flush=True)
+    for run, profiled in enumerate((False, True)):
+        names = [f"/rgnir_profile_{os.getpid()}_{run}_{si}" for si in range(cs.STREAM_RINGS)]
+        rings = [FrameRing.create(name, shape, capacity) for name in names]
+        prof = cProfile.Profile() if profiled else None
+        try:
+            with cs.Producers(names, cs.STREAM_FRAMES, 0) as producers:
+                t0 = time.perf_counter()
+                producers.go.set()
+                if prof:
+                    prof.enable()
+                got = list(analyzer.run_from_rings(rings))
+                torch.cuda.synchronize()
+                if prof:
+                    prof.disable()
+                seconds = time.perf_counter() - t0
+                producers.push_times()
+        finally:
+            for r in rings:
+                r.close()
+        fps = len(got) / seconds
+        print(f"\nstream session, {cs.STREAM_RINGS} rings x {cs.STREAM_FRAMES} frames, capacity "
+              f"{capacity}{', consumer under cProfile' if profiled else ''}: {seconds * 1e3:.2f} ms, "
+              f"{fps:.2f} frames/s, {fps * shape[0] * shape[1] / 1e6:.1f} MPix/s [{smi}]",
+              flush=True)
+    pstats.Stats(prof, stream=sys.stdout).sort_stats("tottime").print_stats(15)
 
 
 def profile_call(torch, label, call, mpix, calls, trace_path):
@@ -119,6 +192,8 @@ def main() -> int:
     ap.add_argument("--mosaic", type=int, default=0,
                     help="also profile the sharded mosaic's kernel body at this side")
     ap.add_argument("--only-mosaic", action="store_true")
+    ap.add_argument("--stream", action="store_true",
+                    help="profile batch-8 1080p streaming dispatches instead of the frames")
     ap.add_argument("--package-root", default=None,
                     help="profile the rgnir_torch package of this tree instead")
     args = ap.parse_args()
@@ -153,8 +228,27 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} [{smi}]; frames {shape}; package "
           f"{os.path.dirname(rgnir_torch.__file__)}", flush=True)
 
+    if args.stream:
+        from rgnir_torch.pipeline.streaming import StreamAnalyzer
+
+        analyzer = StreamAnalyzer(frame_shape=cs.STREAM_SHAPE, kinds=cs.KINDS,
+                                  batch=cs.STREAM_BATCH)
+        analyzer.warmup()
+        frames = [cs.stream_frame(0, seq) for seq in range(cs.STREAM_BATCH)]
+
+        def dispatch():
+            for f in frames:
+                analyzer.submit(f)
+            return list(analyzer.drain())
+
+        h, w = cs.STREAM_SHAPE
+        profile_call(torch, f"stream: one batch-{cs.STREAM_BATCH} dispatch of {h}x{w} frames "
+                     f"(submit, drain), three kinds, statistics only", dispatch,
+                     cs.STREAM_BATCH * h * w / 1e6, args.calls,
+                     os.path.join(out_dir, "torch_stream_trace.json"))
+        profile_stream_session(torch, cs, smi)
     for n, (label, kinds, with_hist, onepass) in enumerate(CONFIGS):
-        if args.only_mosaic:
+        if args.only_mosaic or args.stream:
             break
 
         def call():
