@@ -98,6 +98,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -294,6 +295,31 @@ def other_kind_counts(torch, shape=(2, 97, 333)):
     log(f"kernel fused {shape}: 2, 4 and 8 kinds match the plain version")
 
 
+def byte_hist_library_ms(torch, timer, rows, prefix, shift, key_mode="q24", **validity):
+    """``library_ms`` of byte_hist: one ``torch.bincount`` over row * 256 +
+    key-byte codes of the elements that byte_hist counts (the valid ones
+    whose key matches the row's prefix above the byte; every other valid
+    element is coded to one spare bin), the codes made outside the
+    timing, as hist's are. Its counts are held equal to the kernel's
+    first, so it is the same function."""
+    from rgnir_torch.kernels import select as ks
+
+    vals = ks._valid_elements(rows, validity.get("n_valid"), validity.get("live_rc"),
+                              validity.get("row_major_cols"))
+    keys = ks._radix_keys(vals, key_mode)
+    r = rows.shape[0]
+    codes = torch.arange(r, device=rows.device)[:, None] * 256 + ((keys >> shift) & 255)
+    if shift != ks.SHIFTS[key_mode][0]:
+        high = shift + 8
+        want = (prefix.to(torch.int64) & 0xFFFFFFFF) >> high
+        codes = torch.where((keys >> high) == want[:, None], codes, r * 256)
+    codes = codes.reshape(-1)
+    got = torch.bincount(codes, minlength=r * 256 + 1)[: r * 256].view(r, 256).to(torch.int32)
+    check_equal(torch, f"torch.bincount as byte_hist ({key_mode}, shift {shift}, {validity})",
+                got, ks.byte_hist(rows, prefix, shift, key_mode, **validity))
+    return timer.kernel(lambda: torch.bincount(codes, minlength=r * 256 + 1))
+
+
 def kernel_checks(torch, timer, rates, shape, timed, skip=0, with_hist=True,
                   with_renders=True):
     """Every kernel of the path against its plain version on uniform
@@ -404,7 +430,7 @@ def kernel_checks(torch, timer, rates, shape, timed, skip=0, with_hist=True,
     records["byte_hist"] = dict(
         ms=timer.kernel(lambda: ks.byte_hist(rows, prefix1, 8)),
         plain_ms=timer.kernel(lambda: ks.byte_hist_plain(rows, prefix1, 8)),
-        library_ms=None, bytes=sel_bytes, bound=bound(sel_bytes, 4 * nc * px),
+        library_ms=byte_hist_library_ms(torch, timer, rows, prefix1, 8), bytes=sel_bytes, bound=bound(sel_bytes, 4 * nc * px),
         max_abs_err=0.0)
     records["q24_tail"] = dict(
         ms=timer.kernel(lambda: ks.q24_tail(rows, kp, means)),
@@ -418,7 +444,8 @@ def kernel_checks(torch, timer, rates, shape, timed, skip=0, with_hist=True,
     records["byte_hist_f32"] = dict(
         ms=timer.kernel(lambda: ks.byte_hist(rows, f32_prefixes[16], 16, key_mode="f32")),
         plain_ms=timer.kernel(lambda: ks.byte_hist_plain(rows, f32_prefixes[16], 16, "f32")),
-        library_ms=None, bytes=sel_bytes, bound=bound(sel_bytes, 5 * nc * px),
+        library_ms=byte_hist_library_ms(torch, timer, rows, f32_prefixes[16], 16, "f32"),
+        bytes=sel_bytes, bound=bound(sel_bytes, 5 * nc * px),
         max_abs_err=0.0)
     # q24_onepass: the selected values read once, in one sweep; about 12
     # operations per element (the key's add, multiply, conversion and min,
@@ -700,7 +727,9 @@ def validity_checks(torch, timer, rates, shape, smi):
             records[name] = dict(
                 ms=t[m], plain_ms=timer.kernel(
                     lambda: ks.byte_hist_plain(rows, prefix, shift, key_mode, **modes[m])),
-                library_ms=None, bytes=nbytes, bound=(nbytes / bw_rate * 1e3, "bytes"),
+                library_ms=byte_hist_library_ms(torch, timer, rows, prefix, shift, key_mode,
+                                                **modes[m]),
+                bytes=nbytes, bound=(nbytes / bw_rate * 1e3, "bytes"),
                 max_abs_err=0.0)
     log(f"kernels {shape}: byte_hist (q24 and f32) with prefixes {n_valid_counts(hw)} and "
         f"rectangles {rects} of {(h, w)} blocks matches its plain version")
@@ -1422,6 +1451,220 @@ def stream_checks(torch, wrappers, smi):
     torch.cuda.empty_cache()
 
 
+# --- phase 4e: the batch directory pipeline --------------------------------------
+
+# One full batch of TIFFs. The pipeline's default is 32 frames a batch
+# (LoaderConfig().batch_size), with which the phase took 66 s on an H100
+# host, Pillow's PNG encode most of it; 16 frames at a batch size of 16
+# keep it within its 60 s. tools/profile_torch_path.py --batch runs 32.
+BATCH_TIFFS = 16
+BATCH_SIZE = 16
+BATCH_TIFF_SHAPE = (1536, 2048)   # a 3 MPix 4:3 frame at the reference's MAX_STORE_DIM
+BATCH_JPEGS = 8                   # a remainder batch of another shape
+BATCH_JPEG_SHAPE = (1080, 1920)
+BATCH_PNG_SHAPE = (1021, 1000)    # a batch of one
+BATCH_DISPATCHES = 3
+
+
+def survey_frame(i, shape):
+    """Input ``i`` of the batch phase, (H, W, 3) uint8 from
+    ``numpy.random.default_rng((SEED, i))``: as ``smooth_field``, per
+    channel a low-frequency surface plus a little noise (survey content,
+    which keeps the PNG sizes and encode times honest), with a saturated
+    and a black rectangle."""
+    h, w = shape
+    rng = np.random.default_rng((SEED, i))
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    img = np.empty((h, w, 3), dtype=np.uint8)
+    for c in range(3):
+        fy, fx, py, px = rng.uniform(0.5, 2.5, 4).astype(np.float32)
+        surface = 140.0 + 130.0 * np.sin(2 * np.pi * (fy * y + py)) * np.cos(
+            2 * np.pi * (fx * x + px))
+        noise = rng.standard_normal((h, w), dtype=np.float32)
+        img[:, :, c] = np.clip(surface + noise, 0, 255).astype(np.uint8)
+    img[: h // 4, : w // 3] = 255
+    img[h - h // 8:, w - w // 4:] = 0
+    return img
+
+
+def write_batch_inputs(root, tiffs=BATCH_TIFFS):
+    """Phase 4e's directory: ``tiffs`` TIFFs (uncompressed, as survey
+    cameras write them), the JPEGs (quality 90), the PNG, a truncated
+    TIFF and a text file named .jpg. Returns ``{path: shape}`` of the
+    good inputs."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    jobs = ([(root / f"survey_{i:02d}.tif", i, BATCH_TIFF_SHAPE, {}) for i in range(tiffs)]
+            + [(root / f"video_{i}.jpg", tiffs + i, BATCH_JPEG_SHAPE, {"quality": 90})
+               for i in range(BATCH_JPEGS)]
+            + [(root / "odd.png", tiffs + BATCH_JPEGS, BATCH_PNG_SHAPE, {})])
+
+    def write(job):
+        path, i, shape, kw = job
+        Image.fromarray(survey_frame(i, shape)).save(path, **kw)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+    whole = (root / "survey_00.tif").read_bytes()
+    (root / "zz_truncated.tif").write_bytes(whole[: len(whole) // 2])
+    (root / "zz_not_an_image.jpg").write_text("a text file named .jpg\n")
+    return {path: shape for path, _, shape, _ in jobs}
+
+
+def check_batch_outputs(torch, inputs, out, kinds):
+    """Every render PNG and WB TIFF of run A, decoded by Pillow, against
+    the plain ``pipeline.fused.analyze_image`` on the card of Pillow's
+    decode of its input, byte for byte, a shape at a time. On the same
+    frames, the batch's device step (``analyze_image_auto``, histogram
+    and renders on) is held to the plain path whole: index maps,
+    renders, WB and every statistic (``check_result``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from rgnir_torch.io.decode import decode_file
+    from rgnir_torch.pipeline.dispatch import analyze_image_auto
+    from rgnir_torch.pipeline.fused import analyze_image
+
+    def read(path):
+        return np.asarray(Image.open(path).convert("RGB"))
+
+    checked = 0
+    with ThreadPoolExecutor(8) as pool:
+        for shape in dict.fromkeys(inputs.values()):
+            paths = [p for p, s in inputs.items() if s == shape]
+            frames = np.stack(list(pool.map(decode_file, paths)))
+            ref = analyze_image(frames, kinds=kinds, device="cuda")
+            got = analyze_image_auto(frames, kinds=kinds, device="cuda")
+            check_result(torch, f"batch step {frames.shape}", got, ref, kinds, with_hist=True)
+            want = {"wb": ref.wb.cpu().numpy()}
+            want.update({k: ref.renders[k].cpu().numpy() for k in kinds})
+            del ref, got
+            files = {"wb": [out / "white_balanced" / f"{p.stem}_wb.tif" for p in paths]}
+            files.update({k: [out / k / f"{p.stem}_{k.lower()}.png" for p in paths]
+                          for k in kinds})
+            for name, outs in files.items():
+                for j, got in enumerate(pool.map(read, outs)):
+                    if not np.array_equal(got, want[name][j]):
+                        raise AssertionError(f"batch run A: {outs[j]} differs from the plain "
+                                             f"path ({int((got != want[name][j]).sum())} bytes)")
+                    checked += 1
+    return checked
+
+
+def manifest_counts(path):
+    """Inputs by their last status in a batch manifest."""
+    last = {}
+    for line in path.read_text().splitlines():
+        rec = json.loads(line)
+        last[rec["input"]] = rec["status"]
+    return {s: sum(1 for v in last.values() if v == s) for s in ("done", "failed")}
+
+
+def codec_line():
+    """Which decoder and encoder the batch path uses on this machine."""
+    from rgnir_torch.native import imgio
+
+    if imgio.native_available():
+        return "decode and encode: imgio (libtiff, libjpeg, libpng; PNG at zlib level 1, filter NONE)"
+    err = imgio.build_error().splitlines()
+    first_error = next((ln.strip() for ln in err if "error" in ln), "")
+    return (f"decode and encode: Pillow, at Pillow's default PNG level (imgio did not build: "
+            f"{err[0].strip()} {first_error})")
+
+
+def batch_checks(torch, wrappers, smi):
+    """Phase 4e: ``rgnir_torch.pipeline.batch.batch_process`` on the card,
+    through its entry point: run A with the WB frames, run B resuming it,
+    run C timed."""
+    import shutil
+
+    from rgnir_torch.config import LoaderConfig
+    from rgnir_torch.pipeline.batch import batch_process
+
+    t_phase = time.perf_counter()
+    cfg = LoaderConfig(batch_size=BATCH_SIZE)
+    good = BATCH_TIFFS + BATCH_JPEGS + 1
+    root = Path(__file__).resolve().parent / "build" / f"chip_smoke_batch_{os.getpid()}"
+    src = root / "in"
+    src.mkdir(parents=True)
+    try:
+        inputs = write_batch_inputs(src, BATCH_TIFFS)
+        setup_s = time.perf_counter() - t_phase
+        log(f"batch inputs (batch size {BATCH_SIZE}; the TIFFs cut from 32 to {BATCH_TIFFS} to "
+            f"keep the phase within 60 s): {BATCH_TIFFS} uncompressed TIFF {BATCH_TIFF_SHAPE[0]}x"
+            f"{BATCH_TIFF_SHAPE[1]}, {BATCH_JPEGS} JPEG q90 {BATCH_JPEG_SHAPE[0]}x"
+            f"{BATCH_JPEG_SHAPE[1]}, 1 PNG {BATCH_PNG_SHAPE[0]}x{BATCH_PNG_SHAPE[1]}, a truncated "
+            f"TIFF and a text file named .jpg, written in {setup_s:.2f} s; {codec_line()}")
+        want = {k: v * BATCH_DISPATCHES for k, v in STREAM_LAUNCHES.items()}
+
+        # run A: with the WB frames, every output against the plain path
+        out_a = root / "out_a"
+        summary, launches = count_launches(
+            torch, wrappers, DEFAULT_PATH, "batch run A",
+            lambda: batch_process(src, out_a, save_wb=True, indices=KINDS, loader_cfg=cfg))
+        require(summary["processed"] == good and len(summary["failed"]) == 2
+                and summary["skipped"] == 0,
+                f"batch run A: processed {summary['processed']}, failed "
+                f"{[(p.name, str(e)) for p, e in summary['failed']]}")
+        require(sorted(p.name for p, _ in summary["failed"])
+                == ["zz_not_an_image.jpg", "zz_truncated.tif"], "batch run A: the failures")
+        require(summary["batches"] == BATCH_DISPATCHES and launches == want,
+                f"batch run A: launches {launches} over {summary['batches']} dispatches, "
+                f"expected {want}")
+        counts = manifest_counts(out_a / ".manifest.jsonl")
+        require(counts == {"done": good, "failed": 2}, f"batch run A: manifest {counts}")
+        checked = check_batch_outputs(torch, inputs, out_a, KINDS)
+        log(f"batch run A (save_wb, kinds {list(KINDS)}): {summary['processed']} processed, "
+            f"failed {[p.name for p, _ in summary['failed']]}; {checked} outputs equal to the "
+            f"plain path byte for byte, and on the same frames the batch's device step equal "
+            f"to the plain path in index maps, renders, WB and statistics; manifest {counts}; {summary['batches']} dispatches, "
+            f"launches {launches}; {summary['seconds']['wall']:.2f} s")
+
+        # run B: the same call resumes: nothing to do, no kernel launched
+        summary, launches = count_launches(
+            torch, wrappers, (), "batch run B",
+            lambda: batch_process(src, out_a, save_wb=True, indices=KINDS, loader_cfg=cfg))
+        require((summary["processed"], summary["skipped"], len(summary["failed"]))
+                == (0, good, 2) and summary["batches"] == 0,
+                f"batch run B: {summary}")
+        log(f"batch run B (resume): 0 processed, {summary['skipped']} skipped, "
+            f"{len(summary['failed'])} failed again, no kernel launched")
+
+        # run C: timed, a fresh output directory, no WB frames
+        out_c = root / "out_c"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        torch._C._host_emptyCache()
+        pinned_before = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+        summary = batch_process(src, out_c, indices=KINDS, loader_cfg=cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        pinned_after = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+        require(pinned_after <= pinned_before,
+                f"batch run C: {pinned_after - pinned_before} bytes left pinned")
+        require(summary["processed"] == good and summary["batches"] == BATCH_DISPATCHES,
+                f"batch run C: {summary}")
+        sec = summary["seconds"]
+        mpix = sum(h * w for h, w in inputs.values()) / 1e6
+        log(f"batch run C ({good} frames, {mpix:.1f} MPix, batch size {BATCH_SIZE}, kinds "
+            f"{list(KINDS)}, renders, no WB): wall {sec['wall']:.3f} s, "
+            f"{good / sec['wall']:.2f} frames/s, "
+            f"{mpix / sec['wall']:.1f} MPix/s; host waiting on decode {sec.get('decode', 0):.3f} "
+            f"s, dispatch {sec.get('dispatch', 0):.3f} s, read-back events "
+            f"{sec.get('read_back', 0):.3f} s, write submits {sec.get('write', 0):.3f} s, "
+            f"writer.close() {sec.get('close', 0):.3f} s; peak device memory {peak} bytes, "
+            f"pinned host memory {summary['pinned_peak_bytes']} bytes at most by the host "
+            f"allocator's statistics ({pinned_before} before the run, {pinned_after} after "
+            f"it); {codec_line()} [{smi}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 4e took {time.perf_counter() - t_phase:.1f} s")
+
+
 KERNEL_SOURCES = {
     "hist": ("rgnir_torch/csrc/hist.cu", "rgnir_tpu/kernels/hist.py:39"),
     "fused": ("rgnir_torch/csrc/fused.cu", "rgnir_tpu/kernels/fused.py:78"),
@@ -1487,6 +1730,10 @@ def main() -> int:
     # the streaming session's batch, in its mode: no histogram, no renders
     kernel_checks(torch, timer, rates, (STREAM_BATCH,) + STREAM_SHAPE, timed=False,
                   with_hist=False, with_renders=False)
+    # the batch pipeline's two full-size batches, in its mode: histogram
+    # and renders (its batch of one, 1x1021x1000, is among AWKWARD_SHAPES)
+    for shape in ((BATCH_SIZE,) + BATCH_TIFF_SHAPE, (BATCH_JPEGS,) + BATCH_JPEG_SHAPE):
+        kernel_checks(torch, timer, rates, shape, timed=False)
     other_kind_counts(torch)
     smooth_and_headline(torch, timer, rates, MAIN_SHAPE)
     records.update(validity_checks(torch, timer, rates, MAIN_SHAPE, smi))
@@ -1511,6 +1758,7 @@ def main() -> int:
     many_kinds_checks(torch, WRAPPERS)
     big_frame_checks(torch, WRAPPERS, smi)
     stream_checks(torch, WRAPPERS, smi)
+    batch_checks(torch, WRAPPERS, smi)
 
     # 5. the kernel self-test
     from rgnir_torch.testing import selftest

@@ -34,10 +34,12 @@ def library_path(build_dir: Path, name: str, flags: Sequence[str],
 
 
 def build(compiler: str, flags: Sequence[str], build_dir: Path,
-          targets: Mapping[str, Tuple[Path, Path]]) -> Dict[str, float]:
+          targets: Mapping[str, Tuple[Path, Path]],
+          link: Mapping[str, Sequence[str]] = {}) -> Dict[str, float]:
     """Build each ``name: (source, library path)`` of ``targets`` whose
     library is not there yet, one compiler process per source, all
-    started together.
+    started together. ``link`` gives a target's libraries (``-l``
+    flags), which follow its source on the command line.
 
     Returns the seconds each build took (0.0 for one already built). The
     compiler's output goes to a ``.log`` file beside each library. Raises
@@ -50,7 +52,7 @@ def build(compiler: str, flags: Sequence[str], build_dir: Path,
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen([compiler, *flags, "-o", str(tmp), str(src)],
+        proc = subprocess.Popen([compiler, *flags, "-o", str(tmp), str(src), *link.get(name, ())],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, src, tmp, out, time.perf_counter())
     failures = []

@@ -87,8 +87,18 @@ def analyze_image_kernel(
     else:
         nc, slots = plan
 
+    def unbatch(t: torch.Tensor) -> torch.Tensor:
+        return t if batched else t[0]
+
     hist = channel_histograms(frames)                           # (B, 3, 256)
     lo, hi = wb_bounds_from_histogram(hist, n=n, cfg=WBConfig())  # (B, 3)
+    if not kinds:
+        # White balance alone (a batch run that writes only the WB
+        # frames). The fused kernel needs a kind: it runs one whose
+        # outputs are dropped, with no renders, histogram or select.
+        out = fused_analyze(frames, lo, hi, (IndexKind.NDVI,), with_renders=False,
+                            with_hist=False, round0=[False])
+        return AnalyzeResult(wb=unbatch(out.wb), indices={}, stats={}, renders={})
     out = fused_analyze(frames, lo, hi, kinds, with_renders=with_renders,
                         with_hist=with_hist,
                         round0=[k < nc for k in range(nk)])
@@ -103,9 +113,6 @@ def analyze_image_kernel(
                                         onepass=select_onepass)
     med_c = med_c.reshape(nc, b)
     var_c = (sumsq_c / n).to(torch.float32).reshape(nc, b)
-
-    def unbatch(t: torch.Tensor) -> torch.Tensor:
-        return t if batched else t[0]
 
     indices: Dict[str, torch.Tensor] = {}
     renders: Dict[str, torch.Tensor] = {}

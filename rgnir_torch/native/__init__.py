@@ -1,9 +1,12 @@
-"""Host C++ of the port: the shared-memory frame ring of the streaming
-session (``framering.cpp``), built with g++ at first use into
-``build/rgnir_torch_native/`` (``_build.py``). Counterpart:
-``rgnir_tpu/native/`` (whose decoder and joint histogram are not ported
-yet)."""
+"""Host C++ of the port, each built with g++ at first use into
+``build/rgnir_torch_native/`` (``_build.py``): the shared-memory frame
+ring of the streaming session (``framering.cpp``) and the image decoder
+and encoders of the batch pipeline (``imgio.cpp``, which links libtiff,
+libjpeg and libpng and is optional: without them the callers use
+Pillow). Counterpart: ``rgnir_tpu/native/`` (whose joint histogram is
+not ported yet)."""
 
+from rgnir_torch.native import imgio
 from rgnir_torch.native.ring import FrameRing
 
-__all__ = ["FrameRing"]
+__all__ = ["FrameRing", "imgio"]

@@ -401,3 +401,190 @@ def test_cuda_stream_rings_match_plain(cuda):
         assert [seq for s, seq, _ in got if s == si] == list(range(per_ring))
     assert [r.frame_id for _, _, r in got] == list(range(2 * per_ring))
     chip_smoke.check_stream_results(torch, "stream", got, KINDS)
+
+
+def _batch_dir(root):
+    """Five PNG frames of one shape (two full batches of 2 back to back
+    and a remainder of 1), two JPEG frames of another and a corrupt file."""
+    from PIL import Image
+
+    root.mkdir()
+    for i in range(5):
+        Image.fromarray(chip_smoke.survey_frame(i, (64, 96))).save(root / f"a{i}.png")
+    for i in range(2):
+        Image.fromarray(chip_smoke.survey_frame(5 + i, (48, 80))).save(root / f"b{i}.jpg",
+                                                                       quality=90)
+    (root / "broken.png").write_bytes(b"corrupt")
+    return root
+
+
+@pytest.mark.cuda
+def test_cuda_batch_matches_cpu(cuda, tmp_path, monkeypatch):
+    """batch_process on the card against device="cpu" on one directory:
+    the same summary, output tree and bytes (WB TIFFs and renders), and
+    each dispatch's launches those of the path. Every host buffer the
+    card run takes is pinned, and every batch it copies to the device
+    lies in one."""
+    from rgnir_torch.config import LoaderConfig
+    from rgnir_torch.io.loader import BatchLoader
+    from rgnir_torch.pipeline import batch as tbatch
+
+    src = _batch_dir(tmp_path / "in")
+    pinned = []
+    real_take, real_iter = tbatch.HostBuffers.take, BatchLoader.__iter__
+
+    def take(self, shape, dtype=torch.uint8):
+        buf = real_take(self, shape, dtype)
+        pinned.append(buf.is_pinned())
+        return buf
+
+    def batches(self):
+        for b in real_iter(self):
+            pinned.append(torch.from_numpy(b.images).is_pinned())
+            yield b
+
+    cfg = LoaderConfig(batch_size=2)
+    cpu = tbatch.batch_process(src, tmp_path / "cpu", save_wb=True, indices=KINDS,
+                               loader_cfg=cfg, device="cpu")
+    monkeypatch.setattr(tbatch.HostBuffers, "take", take)
+    monkeypatch.setattr(BatchLoader, "__iter__", batches)
+    torch.zeros(1, device=cuda)  # the host allocator's statistics need CUDA initialised
+    pinned_before = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+    gpu, launches = chip_smoke.count_launches(
+        torch, tk.WRAPPERS, DEFAULT_PATH, "batch",
+        lambda: tbatch.batch_process(src, tmp_path / "gpu", save_wb=True, indices=KINDS,
+                                     loader_cfg=cfg))
+    assert pinned and all(pinned)
+    assert gpu["batches"] == cpu["batches"] == 4 and gpu["pinned_peak_bytes"] > 0
+    # every pinned buffer was released, not left in the host allocator's cache
+    assert torch.cuda.host_memory_stats()["allocated_bytes.current"] <= pinned_before
+    assert launches == {k: 4 * v for k, v in chip_smoke.STREAM_LAUNCHES.items()}
+    assert (gpu["processed"], gpu["skipped"]) == (cpu["processed"], cpu["skipped"]) == (7, 0)
+    assert [p.name for p, _ in gpu["failed"]] == [p.name for p, _ in cpu["failed"]] == [
+        "broken.png"]
+    files = sorted(p.relative_to(tmp_path / "cpu") for p in (tmp_path / "cpu").rglob("*.*")
+                   if p.name != ".manifest.jsonl")
+    assert len(files) == 7 * 4
+    assert files == sorted(p.relative_to(tmp_path / "gpu") for p in (tmp_path / "gpu").rglob("*.*")
+                           if p.name != ".manifest.jsonl")
+    for rel in files:
+        assert (tmp_path / "gpu" / rel).read_bytes() == (tmp_path / "cpu" / rel).read_bytes(), rel
+
+
+def _spin_seconds(cycles):
+    """The device time of ``torch.cuda._sleep(cycles)``."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+@pytest.mark.cuda
+def test_cuda_batch_dispatch_does_not_wait_on_the_device(cuda, tmp_path, monkeypatch):
+    """With each batch's analysis queued behind a spin kernel, every
+    dispatch of batch_process returns while the device is still busy:
+    at least one gives its input buffer back with the copy in still
+    pending, and the host's whole dispatch stage takes well under one
+    spin. (A dispatch that took a buffer whose copy in was pending would
+    wait about a spin.)"""
+    from rgnir_torch.config import LoaderConfig
+    from rgnir_torch.pipeline import batch as tbatch
+
+    src = _batch_dir(tmp_path / "in")
+    analyze_image_auto(torch.zeros((1, 8, 8, 3), dtype=torch.uint8, device=cuda), kinds=KINDS)
+    cycles = 400_000_000
+    spin = _spin_seconds(cycles)
+    real_analyze, real_give = tbatch.analyze_image_auto, tbatch.HostBuffers.give
+    pending_at_give = []
+
+    def slow_analyze(*args, **kw):
+        torch.cuda._sleep(cycles)
+        return real_analyze(*args, **kw)
+
+    def give(self, buf, event=None):
+        if event is not None:
+            pending_at_give.append(not event.query())
+        return real_give(self, buf, event)
+
+    monkeypatch.setattr(tbatch, "analyze_image_auto", slow_analyze)
+    monkeypatch.setattr(tbatch.HostBuffers, "give", give)
+    s = tbatch.batch_process(src, tmp_path / "out", save_wb=True, indices=KINDS,
+                             loader_cfg=LoaderConfig(batch_size=2))
+    assert s["batches"] == 4 and s["processed"] == 7
+    assert len(pending_at_give) == 4 and any(pending_at_give), pending_at_give
+    assert s["seconds"]["dispatch"] < spin / 2, (s["seconds"], spin)
+
+
+@pytest.mark.cuda
+def test_cuda_host_buffers_pinned_bytes_bounded_and_released(cuda, monkeypatch):
+    """Buffers of seven sizes, each its own power-of-two block of the
+    host allocator, through a pool whose idle cap is 8 MiB: after each
+    give back, the bytes the allocator holds pinned are at most the
+    newest block, the one before it (released while the caller still
+    held it, it is unpinned at the next release) and the cap, twice
+    over for the rounding; close() returns them all. Cached rather than
+    unpinned, they would add up to 254 MiB."""
+    from rgnir_torch.pipeline import batch as tbatch
+
+    monkeypatch.setattr(tbatch, "MAX_IDLE_PINNED_BYTES", 8 << 20)
+    torch.zeros(1, device=cuda)
+
+    def pinned():
+        return torch.cuda.host_memory_stats()["allocated_bytes.current"]
+
+    mib = 1 << 20
+    torch._C._host_emptyCache()
+    start = pinned()
+    bufs = tbatch.HostBuffers(pinned=True)
+    for k in range(7):
+        buf = bufs.take(((mib << k) + 4096,))  # rounded up to 2 << k MiB
+        assert buf.is_pinned()
+        dev = buf.to(cuda, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        bufs.give(buf, event)
+        bound = (2 * mib << k) + (mib << k) + 2 * (8 * mib)
+        assert pinned() - start <= bound, (k, pinned() - start)
+        del buf, dev
+    assert bufs.pinned_peak_bytes - start <= (128 + 64 + 16) * mib, bufs.pinned_peak_bytes
+    bufs.close()
+    assert pinned() == start
+
+
+@pytest.mark.cuda
+def test_cuda_host_buffer_waits_for_its_pending_copy(cuda):
+    """A pinned buffer given back with the event of a copy still pending
+    (the stream held by a spin kernel) is handed out again only after
+    that copy ended: rewriting it at once leaves the device's copy whole."""
+    from rgnir_torch.pipeline.batch import HostBuffers
+
+    bufs = HostBuffers(pinned=True)
+    a = bufs.take((32 << 20,))
+    assert a.is_pinned() and torch.from_numpy(a.numpy()).is_pinned()
+    a.fill_(1)
+    torch.cuda._sleep(200_000_000)  # about 0.1 s: the copy waits behind it
+    dev = a.to(cuda, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    bufs.give(a, event)
+    assert not event.query()  # still pending
+    b = bufs.take((32 << 20,))
+    assert b.data_ptr() == a.data_ptr() and event.query()
+    b.fill_(2)
+    torch.cuda.synchronize()
+    assert bool((dev == 1).all())
+
+
+@pytest.mark.cuda
+def test_cuda_white_balance_alone_matches_plain(cuda):
+    """No kinds (a batch run writing only the WB frames): the kernel path
+    launches hist and fused, and its WB bytes are the plain path's."""
+    img = torch.from_numpy(_frames(13, (2, 97, 333))).to(cuda)
+    res, launches = chip_smoke.count_launches(
+        torch, tk.WRAPPERS, ("hist", "fused"), "white balance alone",
+        lambda: analyze_image_auto(img, kinds=()))
+    assert launches["hist"] == 1 and launches["fused"] == 1
+    assert not res.indices and not res.renders and not res.stats
+    assert torch.equal(res.wb, analyze_image(img, kinds=(), device=cuda).wb)

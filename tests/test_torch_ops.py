@@ -300,7 +300,9 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "assert len(names) >= 32, names\n"
         "for name in ('native.ring', 'native._build', 'utils.logging', 'utils.profiling',\n"
-        "             'pipeline.streaming'):\n"
+        "             'pipeline.streaming', 'pipeline.batch', 'io.decode', 'io.cache',\n"
+        "             'io.loader', 'io.writer', 'native.imgio', 'utils.manifest',\n"
+        "             'viz.figures'):\n"
         "    assert 'rgnir_torch.' + name in names, name\n"
         "print(len(names))\n"
     )

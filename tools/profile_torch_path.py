@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of rgnir_torch's analysis path goes, on one CUDA card.
 
-    python3 tools/profile_torch_path.py [--batch 8] [--size 1024] [--calls 5]
+    python3 tools/profile_torch_path.py [--frames 8] [--size 1024] [--calls 5]
                                         [--mosaic 8192] [--only-mosaic] [--onepass]
-                                        [--stream] [--package-root DIR]
+                                        [--stream] [--batch] [--package-root DIR]
 
 For each configuration of chip_smoke.py's path phase (NDVI, GNDVI and
 NDWI with renders and the 50-bin histogram; NDVI alone without the
@@ -38,6 +38,19 @@ spawned producers, 24 frames each, unpaced) twice, the second time under
 ``cProfile`` on the consumer: frames/s of each run, and the consumer's
 host functions by own time (``FrameRing.try_pop`` is the copy out of
 shared memory into the pinned slot).
+``--batch`` profiles the batch directory pipeline instead of the frame
+configurations, on chip_smoke.py's phase 4e directory (32 TIFF frames of
+1536 x 2048, 8 JPEG frames of 1080 x 1920, one PNG, two bad files;
+three kinds with renders, no WB frames: run C): ``--calls`` profiled
+dispatches of the 32-frame batch as ``batch_process`` makes them (the
+copy in from a pinned buffer, ``analyze_image_auto``, the renders'
+copies back into pinned buffers; "Memcpy HtoD" and "Memcpy DtoH" among
+the device rows); then the whole run three times: unprofiled (wall,
+frames/s, the host's stage times), under ``torch.profiler`` (the
+device's busy share of the run's wall), and under ``cProfile`` with the
+decode and encode calls of the pool threads timed each (their wall and
+thread CPU seconds; Python 3.12's cProfile sees every thread, so its
+own times mix the threads').
 ``--package-root DIR`` profiles the ``rgnir_torch`` package of another
 tree (a parent's ``git archive``) with this tree's tool and
 ``chip_smoke.py`` helpers, so that a parent and a change run in turns
@@ -139,6 +152,124 @@ def profile_stream_session(torch, cs, smi):
     pstats.Stats(prof, stream=sys.stdout).sort_stats("tottime").print_stats(15)
 
 
+def profile_batch(torch, cs, smi, calls, trace_path):
+    """chip_smoke.py's phase 4e directory through the batch pipeline
+    (run C): its dispatch under ``profile_call``, then the whole run
+    unprofiled, under ``torch.profiler`` and under ``cProfile``."""
+    import cProfile
+    import pstats
+    import shutil
+    from pathlib import Path
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import rgnir_torch.io.decode as tdecode
+    import rgnir_torch.io.writer as twriter
+    from rgnir_torch.io.decode import decode_file
+    from rgnir_torch.native import imgio
+    from rgnir_torch.pipeline.batch import HostBuffers, batch_process
+    from rgnir_torch.pipeline.dispatch import analyze_image_auto
+
+    root = Path(__file__).resolve().parents[1] / "build" / f"profile_batch_{os.getpid()}"
+    src = root / "in"
+    src.mkdir(parents=True)
+    try:
+        inputs = cs.write_batch_inputs(src, tiffs=32)  # one batch at the default batch size
+        print(f"\nbatch directory: {len(inputs)} good inputs and 2 bad; {cs.codec_line()} "
+              f"[{smi}]", flush=True)
+        tiffs = [p for p, shape in inputs.items() if shape == cs.BATCH_TIFF_SHAPE]
+        bufs = HostBuffers(pinned=True)
+        images = bufs.take_array((len(tiffs),) + cs.BATCH_TIFF_SHAPE + (3,))
+        np.stack([decode_file(p) for p in tiffs], out=images)
+
+        def dispatch():
+            x = torch.from_numpy(images).to("cuda", non_blocking=True)
+            res = analyze_image_auto(x, kinds=cs.KINDS)
+            outs = []
+            for v in res.renders.values():
+                outs.append(bufs.take(v.shape, v.dtype))
+                outs[-1].copy_(v, non_blocking=True)
+            torch.cuda.synchronize()
+            for o in outs:
+                bufs.give(o)
+
+        h, w = cs.BATCH_TIFF_SHAPE
+        profile_call(torch, f"batch: one dispatch of {len(tiffs)} x {h}x{w} frames (copy in, "
+                     f"analysis, the three renders copied back), three kinds", dispatch,
+                     len(tiffs) * h * w / 1e6, calls, trace_path)
+
+        bufs.give(images)
+        del images
+        bufs.close()  # the runs below read the process's pinned bytes
+        mpix = sum(a * b for a, b in inputs.values()) / 1e6
+        frames = len(inputs)
+
+        def run(n):
+            return batch_process(src, root / f"out_{n}", indices=cs.KINDS)
+
+        pinned_before = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+        s = run(0)
+        sec = s["seconds"]
+        print(f"\nbatch run, unprofiled: wall {sec['wall']:.3f} s, {frames / sec['wall']:.2f} "
+              f"frames/s, {mpix / sec['wall']:.1f} MPix/s; stages (s) "
+              f"{ {k: round(v, 4) for k, v in sec.items()} }; {s['batches']} dispatches; "
+              f"pinned host memory {s['pinned_peak_bytes']} bytes at most by the host "
+              f"allocator's statistics ({pinned_before} before the run, "
+              f"{torch.cuda.host_memory_stats()['allocated_bytes.current']} after it) [{smi}]",
+              flush=True)
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            s = run(1)
+            torch.cuda.synchronize()
+        wall = s["seconds"]["wall"]
+        rows = sorted(((e.self_device_time_total / 1e6, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                      reverse=True)
+        busy = sum(r[0] for r in rows)
+        print(f"\nbatch run under torch.profiler: wall {wall:.3f} s; device busy {busy:.4f} s "
+              f"({busy / wall:.2%}), idle {1 - busy / wall:.2%}", flush=True)
+        for secs, count, name in rows[:12]:
+            print(f"  {secs * 1e3:10.4f} ms  x{count:<4d} {name[:90]}")
+
+        timed = {"decode (Pillow decode_file)": [0, 0.0, 0.0],
+                 "encode (_write_array)": [0, 0.0, 0.0]}
+
+        def timing(name, fn):
+            def wrapper(*a, **k):
+                t0, c0 = time.perf_counter(), time.thread_time()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    entry = timed[name]
+                    entry[0] += 1
+                    entry[1] += time.perf_counter() - t0
+                    entry[2] += time.thread_time() - c0
+            return wrapper
+
+        real_decode, real_write = tdecode.decode_file, twriter._write_array
+        tdecode.decode_file = timing("decode (Pillow decode_file)", real_decode)
+        twriter._write_array = timing("encode (_write_array)", real_write)
+        prof = cProfile.Profile()
+        try:
+            prof.enable()
+            s = run(2)
+            prof.disable()
+        finally:
+            tdecode.decode_file, twriter._write_array = real_decode, real_write
+        print(f"\nbatch run under cProfile: wall {s['seconds']['wall']:.3f} s (Python 3.12's "
+              f"cProfile also sees the pool threads' calls, their times mixed with the main "
+              f"thread's); the pool threads' calls, timed each (imgio "
+              f"{'available' if imgio.native_available() else 'absent'}):", flush=True)
+        for name, (n, wall_s, cpu_s) in timed.items():
+            print(f"  {name}: {n} calls, {wall_s:.3f} s of wall and {cpu_s:.3f} s of thread "
+                  f"CPU in all")
+        pstats.Stats(prof, stream=sys.stdout).sort_stats("tottime").print_stats(15)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def profile_call(torch, label, call, mpix, calls, trace_path):
     """Wall time per call, then the device time by kernel name and the
     device's busy share over a profiled window of ``calls`` calls."""
@@ -184,7 +315,7 @@ def profile_call(torch, label, call, mpix, calls, trace_path):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--frames", type=int, default=8, help="frames per call")
     ap.add_argument("--size", type=int, default=1024)
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--onepass", action="store_true",
@@ -194,6 +325,8 @@ def main() -> int:
     ap.add_argument("--only-mosaic", action="store_true")
     ap.add_argument("--stream", action="store_true",
                     help="profile batch-8 1080p streaming dispatches instead of the frames")
+    ap.add_argument("--batch", action="store_true",
+                    help="profile the batch directory pipeline instead of the frames")
     ap.add_argument("--package-root", default=None,
                     help="profile the rgnir_torch package of this tree instead")
     args = ap.parse_args()
@@ -214,11 +347,11 @@ def main() -> int:
     from rgnir_torch.pipeline.dispatch import analyze_image_auto
 
     build()
-    shape = (args.batch, args.size, args.size, 3)
+    shape = (args.frames, args.size, args.size, 3)
     img = torch.as_tensor(
         np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8),
         device="cuda")
-    mpix = args.batch * args.size * args.size / 1e6
+    mpix = args.frames * args.size * args.size / 1e6
     out_dir = os.path.join(root, "build", "torch_path_traces")
     os.makedirs(out_dir, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -247,8 +380,10 @@ def main() -> int:
                      cs.STREAM_BATCH * h * w / 1e6, args.calls,
                      os.path.join(out_dir, "torch_stream_trace.json"))
         profile_stream_session(torch, cs, smi)
+    if args.batch:
+        profile_batch(torch, cs, smi, args.calls, os.path.join(out_dir, "torch_batch_trace.json"))
     for n, (label, kinds, with_hist, onepass) in enumerate(CONFIGS):
-        if args.only_mosaic or args.stream:
+        if args.only_mosaic or args.stream or args.batch:
             break
 
         def call():
@@ -275,7 +410,7 @@ def main() -> int:
                 os.path.join(out_dir, f"torch_mosaic_trace_{shards}.json"))
     if args.onepass:
         print(f"\none-pass select kernel [{smi}]:", flush=True)
-        time_onepass(torch, cs, (args.batch, args.size, args.size))
+        time_onepass(torch, cs, (args.frames, args.size, args.size))
     return 0
 
 
