@@ -78,6 +78,18 @@ Phases, each reported on its own line:
    latency from ``try_push`` to statistics on the host; (iii) three
    frames from two rings into a batch-8 analyzer with ``max_frames=3``:
    one partial dispatch, routed, against the plain path;
+4e. the batch directory pipeline (``batch_checks``);
+4f. alignment and monitoring on 1536 x 2048 survey frames, which the
+   flows downscale to 768 x 1024 on the card, each against the same call
+   on the CPU, its launches counted (none for change detection; hist 1,
+   fused 1, byte_hist 2 and q24_tail 1 per shape group otherwise), with
+   its wall (median of 5) and device time by class (copies, GEMM, FFT,
+   the kernel path, small ops): ``change_detection`` with a planted
+   shift of (9, -14) at the cap and a planted change, integer, with
+   ``upsample_factor=10`` and with ``refine_tile=256`` (its 3 x 4 field
+   exact); ``change_series_maps`` over 8 dates in one batched pass; the
+   time series' device part (``timeseries.date_stats``) over the 8
+   dates; ``comparison_analysis`` of four images in two shape groups;
 5. the kernel self-test (``rgnir_torch.testing.selftest``), which must
    pass;
 6. a ``kernels`` JSON line for the records.
@@ -87,13 +99,15 @@ raises and exits non-zero before it; with no CUDA device, or without the
 package beside it, the script exits non-zero at once. Inputs come from
 ``numpy.random.default_rng(seed)``. Tolerances are the port's contract:
 exact for bytes, counts, min, max and the median; index maps within
-1.2e-7; mean within 1e-5; variance within 1e-4.
+1.2e-7 (1e-5 after a subpixel warp); mean within 1e-5; variance within
+1e-4.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1665,6 +1679,305 @@ def batch_checks(torch, wrappers, smi):
     log(f"phase 4e took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 4f: alignment, change detection, time series and comparison ----------
+
+FLOW_SHAPE = BATCH_TIFF_SHAPE   # 3 MPix frames at the store cap; the flows downscale to 768 x 1024
+FLOW_MAX_DIM = 1024             # the reference's analysis and alignment cap
+FLOW_SHIFT = (9, -14)           # planted, at the cap (twice that in the frames)
+FLOW_STEP = (2, -3)             # between consecutive dates, at the cap
+FLOW_DATES = 8
+FLOW_TILE = 256                 # refine_tile: a 3 x 4 field at 768 x 1024
+FLOW_REPS = 5
+SUBPIXEL_ATOL = 1e-5            # index maps after a subpixel warp
+COVERAGE_RTOL = 2.4e-7          # two float32 ulps
+COMPARE_SHAPES = (BATCH_TIFF_SHAPE,) * 3 + (BATCH_JPEG_SHAPE,)  # two shape groups
+# one analyze_image_auto call (one shape group): hist and fused once, two
+# byte_hist rounds and one q24_tail pass, each serving every kind
+GROUP_LAUNCHES = {"hist": 1, "fused": 1, "byte_hist": 2, "q24_tail": 1, "q24_onepass": 0}
+
+
+def displaced(img, dy, dx, seed, change=False):
+    """``img`` with its content moved so that the shift aligning it back
+    onto ``img`` is (dy, dx): ``out[y, x] = img[y + dy, x + dx]``, with
+    half-sample reflect borders, integer noise in [-2, 2] from
+    ``default_rng((SEED, seed))`` and, with ``change``, a block's NIR
+    raised by 60 (a planted change)."""
+    h, w = img.shape[:2]
+
+    def reflect(i, n):
+        i = np.where(i < 0, -i - 1, i)
+        return np.where(i >= n, 2 * n - 1 - i, i)
+
+    out = img[reflect(np.arange(h) + dy, h)[:, None], reflect(np.arange(w) + dx, w)[None, :]]
+    out = out.astype(np.int16)
+    out += np.random.default_rng((SEED, seed)).integers(-2, 3, out.shape, dtype=np.int16)
+    if change:
+        out[h // 3: h // 2, w // 2: w // 2 + w // 5, 2] += 60
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+PATH_KERNEL = re.compile(r"\b(hist|fused|byte_hist|q24_tail|q24_onepass)_kernel\b")
+
+
+def kernel_class(name):
+    """The class of a device row of the profiler, for the flows' shares."""
+    low = name.lower()
+    if "fft" in low:
+        return "fft"
+    if PATH_KERNEL.search(name):
+        return "kernel path"
+    if "gemm" in low or "cutlass" in low or "xmma" in low:
+        return "gemm"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    return "small ops"
+
+
+def device_profile(torch, fn):
+    """Device time of one call of ``fn`` (``torch.profiler``, the device
+    rows' self time): ``(ms, {class: ms})``, or ``(None, {})`` when the
+    profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            c = kernel_class(e.key)
+            by[c] = by.get(c, 0.0) + e.self_device_time_total / 1e3
+    if not by:
+        return None, {}
+    return sum(by.values()), by
+
+
+def flow_timing(torch, timer, fn, smi):
+    """The wall (median of FLOW_REPS after a warm-up, host clock, each
+    call synchronised) and the device time of one call, as text."""
+    wall = timer.wall(fn, reps=FLOW_REPS, warm=1)
+    dev, by = device_profile(torch, fn)
+    if dev is None:
+        return f"wall {wall:.4f} ms (median of {FLOW_REPS}); device time not measured [{smi}]"
+    shares = ", ".join(f"{k} {v:.4f} ms ({v / dev:.1%})" for k, v in
+                       sorted(by.items(), key=lambda kv: -kv[1]))
+    return (f"wall {wall:.4f} ms (median of {FLOW_REPS}), device {dev:.4f} ms "
+            f"({dev / wall:.1%} of the wall): {shares} [{smi}]")
+
+
+def same_bytes(torch, what, got, want):
+    """The card's downscaled frames are the CPU's, byte for byte (the
+    resize sums exactly in float64 on both)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        check_equal(torch, f"{what} downscale {i}", g.cpu(), w)
+
+
+def downscaled(torch, frames, device, max_dim):
+    from rgnir_torch.ops.resize import preprocess_large_image
+
+    return [preprocess_large_image(torch.as_tensor(f).to(device), max_dim) for f in frames]
+
+
+def change_checks(torch, wrappers, early, late, planted, tile, max_dim=FLOW_MAX_DIM,
+                  timer=None, smi=""):
+    """``change_detection`` on the card, integer, upsampled (10) and with
+    ``refine_tile``, each against the same call on the CPU (given the
+    CPU's downscaled frames, which must equal the card's byte for byte,
+    so the CPU resizes each frame once): the shift the CPU's and the
+    planted one (within 1/upsample_factor), the maps within 1.2e-7 (a
+    whole shift) or 1e-5 (a subpixel one), no kernel of the path
+    launched; and the tile field of ``align_images_local`` exact."""
+    from rgnir_torch.pipeline.change import change_detection
+    from rgnir_torch.register import align_images_local
+
+    small = downscaled(torch, (early, late), "cuda", max_dim)
+    cpu_small = downscaled(torch, (early, late), "cpu", max_dim)
+    same_bytes(torch, "change", small, cpu_small)
+    h, w = small[0].shape[:2]
+    lines = []
+    for mode, kw in (("integer", {}), ("upsample_factor 10", {"upsample_factor": 10}),
+                     (f"refine_tile {tile}", {"refine_tile": tile})):
+        def call():
+            return change_detection(early, late, "NDVI", max_dim=max_dim, with_figure=False,
+                                    device="cuda", **kw)
+
+        got, _ = count_launches(torch, wrappers, (), f"change detection {mode}", call)
+        ref = change_detection(cpu_small[0], cpu_small[1], "NDVI", max_dim=max_dim,
+                               with_figure=False, device="cpu", **kw)
+        shift = got["shift"]
+        require(np.array_equal(shift, ref["shift"]),
+                f"change {mode}: shift {shift} on the card, {ref['shift']} on the CPU")
+        tol = 0.0 if "upsample_factor" not in kw else 1.0 / kw["upsample_factor"] + 1e-6
+        require(np.abs(shift - np.asarray(planted)).max() <= tol,
+                f"change {mode}: shift {shift}, planted {planted}")
+        whole = bool(np.all(shift == np.round(shift)))
+        atol = IDX_ATOL if whole else SUBPIXEL_ATOL
+        errs = {k: check_close(f"change {mode} {k}", torch.from_numpy(got[k]),
+                               torch.from_numpy(ref[k]), atol)
+                for k in ("early_index", "late_index", "diff")}
+        require(got["diff"].shape == (h, w) and np.isfinite(got["diff"]).all(), f"change {mode}")
+        timing = flow_timing(torch, timer, call, smi) if timer else ""
+        lines.append(f"change detection {h}x{w} ({mode}): shift {shift.tolist()} equals the "
+                     f"CPU's, planted {list(planted)} (within {tol:.2g}); maps within "
+                     f"{max(errs.values()):.3g} of the CPU's (bound {atol}); no kernel "
+                     f"launched; {timing}")
+    field = align_images_local(small[0], small[1], tile=(tile, tile))[2]
+    ref_field = align_images_local(cpu_small[0], cpu_small[1], tile=(tile, tile))[2]
+    check_equal(torch, "change tile field", field.cpu(), ref_field)
+    want_field = (-(-h // tile), -(-w // tile), 2)
+    require(tuple(field.shape) == want_field, f"field shape {tuple(field.shape)}")
+    lines.append(f"align_images_local {h}x{w} tile {tile}: the {want_field[0]}x{want_field[1]} "
+                 f"field equals the CPU's; the downscaled frames equal the CPU's")
+    return lines
+
+
+def series_checks(torch, wrappers, stack, step, timer=None, smi=""):
+    """``change_series_maps`` over ``(T, H, W, 3)`` frames on the card in one
+    batched pass against the CPU: the shifts exact and each the planted
+    ``step``; diffs within 1.2e-7; mean, min and max of each pair within
+    1e-5, std within 1e-4; no kernel of the path launched."""
+    from rgnir_torch.pipeline.change import change_series_maps
+
+    def call():
+        return change_series_maps(stack, "NDVI")
+
+    (diffs, shifts, stats), _ = count_launches(torch, wrappers, (), "change series", call)
+    rd, rs, rst = change_series_maps(stack.cpu(), "NDVI")
+    check_equal(torch, "series shifts", shifts.cpu(), rs)
+    require(bool((rs == torch.tensor(step, dtype=torch.float32)).all()),
+            f"series shifts {rs.tolist()}, planted {list(step)} each")
+    check_close("series diffs", diffs.cpu(), rd, IDX_ATOL)
+    for k in ("mean", "min", "max"):
+        check_close(f"series {k}", stats[k].cpu(), rst[k], MEAN_ATOL)
+    check_close("series std", stats["std"].cpu(), rst["std"], VAR_ATOL)
+    t, h, w = stack.shape[:3]
+    timing = flow_timing(torch, timer, call, smi) if timer else ""
+    return (f"change_series_maps {t} dates of {h}x{w} ({t - 1} pairs in one pass): shifts "
+            f"{list(step)} each, equal to the CPU's; diffs and pair statistics within the "
+            f"contract; no kernel launched; {timing}")
+
+
+def launches_times(groups):
+    return {k: v * groups for k, v in GROUP_LAUNCHES.items()}
+
+
+def timeseries_checks(torch, wrappers, dates, groups, max_dim=FLOW_MAX_DIM, timer=None,
+                      smi=""):
+    """``timeseries.date_stats`` (the device part of
+    ``time_series_analysis``: downscale, white balance, the per-date
+    columns) on the card: each shape group one ``analyze_image_auto``
+    call (hist 1, fused 1, byte_hist 2, q24_tail 1); the downscaled
+    frames equal the CPU's, and the white-balanced frames and columns
+    are the CPU's call's on them (exact median, min and max; mean within
+    1e-5; coverage within two ulps)."""
+    from rgnir_torch.pipeline.timeseries import date_stats
+
+    def call():
+        return date_stats(dates, "NDVI", max_dim=max_dim, device="cuda")
+
+    got, launches = count_launches(torch, wrappers, DEFAULT_PATH, "time series", call)
+    require(launches == launches_times(groups), f"time series launches {launches}")
+    cpu_frames = downscaled(torch, dates, "cpu", max_dim)
+    same_bytes(torch, "time series", got.frames, cpu_frames)
+    ref = date_stats(cpu_frames, "NDVI", max_dim=max_dim, device="cpu")
+    for i, (g, r) in enumerate(zip(got.wb, ref.wb)):
+        check_equal(torch, f"time series wb {i}", g.cpu(), r)
+    for c in ("median", "min", "max"):
+        require(np.array_equal(got.columns[c], ref.columns[c]), f"time series {c}")
+    require(np.abs(got.columns["mean"] - ref.columns["mean"]).max() <= MEAN_ATOL, "mean")
+    require(np.all(np.abs(got.columns["coverage"] - ref.columns["coverage"])
+                   <= COVERAGE_RTOL * np.abs(ref.columns["coverage"])), "coverage")
+    h, w = got.frames[0].shape[:2]
+    timing = flow_timing(torch, timer, call, smi) if timer else ""
+    return (f"time series {len(dates)} dates -> {h}x{w}: downscaled frames equal to the "
+            f"CPU's, per-date columns and WB frames equal to the CPU's under the contract; "
+            f"launches {launches} ({groups} shape group(s)); {timing}")
+
+
+def compare_checks(torch, wrappers, images, kinds, groups, max_dim=FLOW_MAX_DIM, timer=None,
+                   smi=""):
+    """``comparison_analysis`` on the card (no figures): one
+    ``analyze_image_auto`` call per shape group; the duplicate name
+    suffixed; the downscaled frames equal the CPU's, and statistics, WB
+    frames and index maps are the CPU's call's on them."""
+    from rgnir_torch.pipeline.compare import comparison_analysis
+
+    def call():
+        return comparison_analysis(images, kinds=kinds, max_dim=max_dim, with_figures=False,
+                                   device="cuda")
+
+    got, launches = count_launches(torch, wrappers, DEFAULT_PATH, "comparison", call)
+    require(launches == launches_times(groups), f"comparison launches {launches}")
+    frames = [a for _, a in images]
+    cpu_small = downscaled(torch, frames, "cpu", max_dim)
+    same_bytes(torch, "comparison", downscaled(torch, frames, "cuda", max_dim), cpu_small)
+    ref = comparison_analysis([(n, s) for (n, _), s in zip(images, cpu_small)], kinds=kinds,
+                              max_dim=max_dim, with_figures=False, device="cpu")
+    require(list(got.index_stats[kinds[0]]) == list(ref.index_stats[kinds[0]]), "names")
+    for k in kinds:
+        for name, g in got.index_stats[k].items():
+            r = ref.index_stats[k][name]
+            for key, v in g.items():
+                if key.startswith("Mean"):
+                    ok = abs(v - r[key]) <= MEAN_ATOL
+                elif "Coverage" in key:
+                    ok = abs(v - r[key]) <= COVERAGE_RTOL * abs(r[key])
+                else:
+                    ok = v == r[key]
+                require(ok, f"comparison {k} {name} {key}: {v} vs {r[key]}")
+        for i, (g, r) in enumerate(zip(got.index_arrays[k], ref.index_arrays[k])):
+            check_close(f"comparison {k} {i}", torch.from_numpy(g), torch.from_numpy(r), IDX_ATOL)
+    for i, (g, r) in enumerate(zip(got.wb_arrays, ref.wb_arrays)):
+        require(np.array_equal(g, r), f"comparison wb {i}")
+    timing = flow_timing(torch, timer, call, smi) if timer else ""
+    shapes = sorted({tuple(a.shape) for a in got.wb_arrays})
+    return (f"comparison of {len(images)} images ({list(got.index_stats[kinds[0]])}) at "
+            f"{shapes}, kinds {list(kinds)}: downscaled frames equal to the CPU's; statistics, "
+            f"WB frames and index maps equal to the CPU's under the contract; launches "
+            f"{launches} ({groups} shape groups); {timing}")
+
+
+def flow_inputs(shape=FLOW_SHAPE, dates=FLOW_DATES):
+    """Phase 4f's frames: frame 0 of ``survey_frame``; late, frame 0 moved
+    by twice FLOW_SHIFT with a planted change; and the dates, date k
+    frame 0 moved by 2 k FLOW_STEP, a change planted from the middle
+    date on."""
+    early = survey_frame(0, shape)
+    late = displaced(early, 2 * FLOW_SHIFT[0], 2 * FLOW_SHIFT[1], seed=100, change=True)
+    series = [early] + [displaced(early, 2 * k * FLOW_STEP[0], 2 * k * FLOW_STEP[1],
+                                  seed=100 + k, change=k >= dates // 2)
+                        for k in range(1, dates)]
+    return early, late, series
+
+
+def flow_checks(torch, wrappers, timer, smi):
+    """Phase 4f: change detection, the change series, the time series'
+    device part and the comparison on the card, each held against the
+    CPU, their launches counted, timed."""
+    from rgnir_torch.config import MAX_ANALYSIS_DIM
+
+    t_phase = time.perf_counter()
+    early, late, series = flow_inputs()
+    h, w = FLOW_SHAPE
+    log(f"flow inputs: survey_frame(0, {h}x{w}), late moved by {[2 * v for v in FLOW_SHIFT]} "
+        f"(the planted shift {list(FLOW_SHIFT)} at the {FLOW_MAX_DIM} cap) with a planted "
+        f"change; {FLOW_DATES} dates moved by {list(FLOW_STEP)} a date at the cap; "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    for line in change_checks(torch, wrappers, early, late, FLOW_SHIFT, FLOW_TILE,
+                              timer=timer, smi=smi):
+        log(line)
+    stack = torch.stack(downscaled(torch, series, "cuda", MAX_ANALYSIS_DIM))
+    log(series_checks(torch, wrappers, stack, FLOW_STEP, timer=timer, smi=smi))
+    del stack
+    log(timeseries_checks(torch, wrappers, series, groups=1, timer=timer, smi=smi))
+    images = [(f"survey_{i}.tif" if i != 2 else "survey_0.tif", survey_frame(i, shape))
+              for i, shape in enumerate(COMPARE_SHAPES)]
+    log(compare_checks(torch, wrappers, images, KINDS, groups=2, timer=timer, smi=smi))
+    log(f"phase 4f took {time.perf_counter() - t_phase:.1f} s")
+
+
 KERNEL_SOURCES = {
     "hist": ("rgnir_torch/csrc/hist.cu", "rgnir_tpu/kernels/hist.py:39"),
     "fused": ("rgnir_torch/csrc/fused.cu", "rgnir_tpu/kernels/fused.py:78"),
@@ -1759,6 +2072,7 @@ def main() -> int:
     big_frame_checks(torch, WRAPPERS, smi)
     stream_checks(torch, WRAPPERS, smi)
     batch_checks(torch, WRAPPERS, smi)
+    flow_checks(torch, WRAPPERS, timer, smi)
 
     # 5. the kernel self-test
     from rgnir_torch.testing import selftest

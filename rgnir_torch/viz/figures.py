@@ -1,22 +1,24 @@
-"""Matplotlib composition of index figures, the part the batch
+"""Matplotlib composition of figures: the index figures the batch
 pipeline's ``figures=True`` writes (reference parity:
-process-images.py:669-716, backend-process.py:40-47).
+process-images.py:669-716, backend-process.py:40-47) and the
+comparison, time-series and change figures (process-images.py:718-989).
 
 All functions take already-computed arrays (numpy) and compose figures
 on the host; none of them touch the device. Agg only (no interactive
 backend). matplotlib and Pillow are imported inside the functions that
 use them: the card's machine has no matplotlib, so figures are composed
 on machines that have it (the CPU tests hold them equal to the JAX
-package's). The comparison, time-series, change, histogram and
-side-by-side figures wait for their pipelines. Counterpart:
-``rgnir_tpu/viz/figures.py:21-344``.
+package's). The comparison, time-series and change figures serve
+``pipeline.compare``, ``pipeline.timeseries`` and ``pipeline.change``;
+the histogram and side-by-side figures wait for their pipelines.
+Counterpart: ``rgnir_tpu/viz/figures.py:21-447``.
 """
 
 from __future__ import annotations
 
 import io
 from pathlib import Path
-from typing import Union
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 
@@ -346,3 +348,107 @@ class IndexFigureWriter:
             Image.fromarray(rgb).save(
                 str(path), "PNG", compress_level=self.compress_level
             )
+
+
+def render_comparison_figure(
+    items: Sequence[dict],
+    index_type: Optional[Union[IndexKind, str]] = None,
+):
+    """N-up side-by-side comparison (process-images.py:718-799).
+
+    Each item: ``{"filename": str, "array": ndarray, "stats": dict?}``.
+    With ``index_type`` the arrays are index maps rendered with the
+    index colormap and per-image stats are collected (the precomputed
+    stats of the device pass); without it the arrays display as plain
+    images. 4N x 4 in, filename titles at fontsize 8, tight layout with
+    0.1 in padding. Returns ``(Pillow image or None, stats by name)``.
+    """
+    if not items:
+        return None, {}
+    n = len(items)
+    fig = _new_figure((4 * n, 4))
+    all_stats: Dict[str, dict] = {}
+    kind = IndexKind.parse(index_type) if index_type else None
+    for i, item in enumerate(items):
+        ax = fig.add_subplot(1, n, i + 1)
+        arr = np.asarray(item["array"])
+        if kind is not None:
+            im = ax.imshow(arr, cmap=kind.cmap_name, vmin=-1, vmax=1)
+            fig.colorbar(im, ax=ax, label=kind.value)
+            name = item.get("filename", f"image_{i}")
+            if "stats" in item and item["stats"] is not None:
+                all_stats[name] = item["stats"]
+        else:
+            ax.imshow(arr)
+        if item.get("filename"):
+            ax.set_title(item["filename"], fontsize=8)
+        ax.axis("off")
+    fig.tight_layout()
+    return _fig_to_pil(fig, pad_inches=0.1), all_stats
+
+
+def render_time_series_figure(
+    dates: Sequence,
+    means: Sequence[float],
+    mins: Sequence[float],
+    maxs: Sequence[float],
+    kind: Union[IndexKind, str],
+):
+    """Error-bar time series (process-images.py:801-883): mean with
+    asymmetric yerr [mean-min, max-mean], fmt 'o-', capsize 5, red
+    dashed threshold line, grid alpha 0.3, legend, autofmt_xdate.
+    None for fewer than two dates."""
+    if len(dates) < 2:
+        return None
+    kind = IndexKind.parse(kind)
+    means = np.asarray(means, dtype=float)
+    mins = np.asarray(mins, dtype=float)
+    maxs = np.asarray(maxs, dtype=float)
+    fig = _new_figure((10, 6))
+    ax = fig.add_subplot(111)
+    ax.errorbar(
+        list(dates), means, yerr=[means - mins, maxs - means],
+        fmt="o-", capsize=5, label=f"Mean {kind.value}",
+    )
+    ax.axhline(
+        y=kind.coverage_threshold, color="r", linestyle="--",
+        label=f"{kind.feature_name} Threshold",
+    )
+    ax.set_title(f"{kind.value} Time Series")
+    ax.set_xlabel("Date")
+    ax.set_ylabel(f"{kind.value} Value")
+    ax.grid(True, alpha=0.3)
+    ax.legend()
+    fig.autofmt_xdate()
+    return _fig_to_pil(fig)
+
+
+def render_change_figure(
+    early_index: np.ndarray,
+    late_index: np.ndarray,
+    diff: np.ndarray,
+    kind: Union[IndexKind, str],
+    early_label: str = "",
+    late_label: str = "",
+):
+    """3-panel change detection (process-images.py:927-989): early/late
+    with the index colormap at +/-1, difference with bwr at +/-0.5 and a
+    delta-labeled colorbar; 15x5 in."""
+    kind = IndexKind.parse(kind)
+    fig = _new_figure((15, 5))
+    panels = [
+        (np.asarray(early_index), kind.cmap_name, (-1, 1),
+         f"Early: {early_label}", kind.value),
+        (np.asarray(late_index), kind.cmap_name, (-1, 1),
+         f"Late: {late_label}", kind.value),
+        (np.asarray(diff), "bwr", (-0.5, 0.5),
+         f"Change in {kind.value}", f"Δ{kind.value}"),
+    ]
+    for i, (arr, cmap, (vmin, vmax), title, cbar_label) in enumerate(panels):
+        ax = fig.add_subplot(1, 3, i + 1)
+        im = ax.imshow(arr, cmap=cmap, vmin=vmin, vmax=vmax)
+        ax.set_title(title)
+        fig.colorbar(im, ax=ax, label=cbar_label)
+        ax.axis("off")
+    fig.tight_layout()
+    return _fig_to_pil(fig)

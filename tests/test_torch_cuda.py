@@ -588,3 +588,51 @@ def test_cuda_white_balance_alone_matches_plain(cuda):
     assert launches["hist"] == 1 and launches["fused"] == 1
     assert not res.indices and not res.renders and not res.stats
     assert torch.equal(res.wb, analyze_image(img, kinds=(), device=cuda).wb)
+
+
+def _flow_frames(shape=(512, 640), shift=(3, -4), step=(1, -2), dates=4):
+    """chip_smoke.py's phase 4f inputs at a smaller size: frame 0, late
+    moved by twice ``shift``, and ``dates`` dates moved by twice
+    ``step`` each (the flows downscale by 2 to a cap of 320)."""
+    early = chip_smoke.survey_frame(0, shape)
+    late = chip_smoke.displaced(early, 2 * shift[0], 2 * shift[1], seed=1, change=True)
+    series = [early] + [chip_smoke.displaced(early, 2 * k * step[0], 2 * k * step[1],
+                                             seed=1 + k, change=k >= dates // 2)
+                        for k in range(1, dates)]
+    return early, late, series
+
+
+@pytest.mark.cuda
+def test_cuda_change_detection_matches_cpu(cuda):
+    """Integer, upsampled and tiled change detection on the card: the
+    planted shift exact, the maps the CPU's, no kernel of the path."""
+    early, late, _ = _flow_frames()
+    lines = chip_smoke.change_checks(torch, tk.WRAPPERS, early, late, (3, -4), 128, max_dim=320)
+    assert len(lines) == 4
+
+
+@pytest.mark.cuda
+def test_cuda_change_series_matches_cpu(cuda):
+    from rgnir_torch.ops.resize import preprocess_large_image
+
+    _, _, series = _flow_frames()
+    stack = torch.stack([preprocess_large_image(torch.from_numpy(f).to(cuda), 320)
+                         for f in series])
+    chip_smoke.series_checks(torch, tk.WRAPPERS, stack, (1, -2))
+
+
+@pytest.mark.cuda
+def test_cuda_time_series_matches_cpu(cuda):
+    """Two shape groups: one analyze_image_auto call each."""
+    _, _, series = _flow_frames()
+    series[1] = chip_smoke.survey_frame(5, (480, 640))
+    chip_smoke.timeseries_checks(torch, tk.WRAPPERS, series, groups=2, max_dim=320)
+
+
+@pytest.mark.cuda
+def test_cuda_comparison_matches_cpu(cuda):
+    images = [("a.tif", chip_smoke.survey_frame(0, (512, 640))),
+              ("b.tif", chip_smoke.survey_frame(1, (512, 640))),
+              ("a.tif", chip_smoke.survey_frame(2, (512, 640))),
+              ("c.jpg", chip_smoke.survey_frame(3, (480, 640)))]
+    chip_smoke.compare_checks(torch, tk.WRAPPERS, images, KINDS, groups=2, max_dim=320)

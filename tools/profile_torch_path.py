@@ -3,7 +3,8 @@
 
     python3 tools/profile_torch_path.py [--frames 8] [--size 1024] [--calls 5]
                                         [--mosaic 8192] [--only-mosaic] [--onepass]
-                                        [--stream] [--batch] [--package-root DIR]
+                                        [--stream] [--batch] [--change]
+                                        [--package-root DIR]
 
 For each configuration of chip_smoke.py's path phase (NDVI, GNDVI and
 NDWI with renders and the 50-bin histogram; NDVI alone without the
@@ -51,6 +52,15 @@ device's busy share of the run's wall), and under ``cProfile`` with the
 decode and encode calls of the pool threads timed each (their wall and
 thread CPU seconds; Python 3.12's cProfile sees every thread, so its
 own times mix the threads').
+``--change`` profiles chip_smoke.py's phase 4f instead of the frame
+configurations: change detection of two 1536 x 2048 frames (integer,
+``upsample_factor=10`` and ``refine_tile=256``, downscaled to 768 x
+1024 on the device), ``change_series_maps`` over 8 downscaled dates,
+the time series' device part (``timeseries.date_stats``) over the 8
+dates and ``comparison_analysis`` of four images in two shape groups,
+three kinds; for each, beside the rows by kernel name, the device time
+by class (FFT, GEMM for the resize and the upsampled DFT, the kernel
+path, copies, small ops).
 ``--package-root DIR`` profiles the ``rgnir_torch`` package of another
 tree (a parent's ``git archive``) with this tree's tool and
 ``chip_smoke.py`` helpers, so that a parent and a change run in turns
@@ -303,7 +313,7 @@ def profile_call(torch, label, call, mpix, calls, trace_path):
           f"(host clock, {calls} calls)", flush=True)
     if busy_ms == 0:
         print("  device time: not measured (the profiler saw no device time)")
-        return
+        return rows
     per_call_window = window_ms / calls
     print(f"  profiled window {per_call_window:.4f} ms per call; device busy "
           f"{busy_ms:.4f} ms ({busy_ms / per_call_window:.1%}), idle "
@@ -311,6 +321,51 @@ def profile_call(torch, label, call, mpix, calls, trace_path):
           f"wall time, idle {1 - busy_ms / wall_ms:.1%}")
     for ms, count, name in rows[:20]:
         print(f"  {ms:9.4f} ms  x{count:<3d} {name[:100]}")
+    return rows
+
+
+def profile_flows(torch, cs, calls, out_dir):
+    """chip_smoke.py's phase 4f flows, each through ``profile_call``, with
+    its device time by class (``chip_smoke.kernel_class``)."""
+    from rgnir_torch.config import MAX_ANALYSIS_DIM
+    from rgnir_torch.pipeline.change import change_detection, change_series_maps
+    from rgnir_torch.pipeline.compare import comparison_analysis
+    from rgnir_torch.pipeline.timeseries import date_stats
+
+    early, late, series = cs.flow_inputs()
+    stack = torch.stack(cs.downscaled(torch, series, "cuda", MAX_ANALYSIS_DIM))
+    images = [(f"survey_{i}.tif", cs.survey_frame(i, shape))
+              for i, shape in enumerate(cs.COMPARE_SHAPES)]
+    h, w = cs.FLOW_SHAPE
+    pair_mpix = 2 * h * w / 1e6
+    flows = [  # label, call, MPix of its input
+        (f"change detection {h}x{w}, integer",
+         lambda: change_detection(early, late, "NDVI", with_figure=False), pair_mpix),
+        (f"change detection {h}x{w}, upsample_factor 10",
+         lambda: change_detection(early, late, "NDVI", with_figure=False, upsample_factor=10),
+         pair_mpix),
+        (f"change detection {h}x{w}, refine_tile {cs.FLOW_TILE}",
+         lambda: change_detection(early, late, "NDVI", with_figure=False,
+                                  refine_tile=cs.FLOW_TILE), pair_mpix),
+        (f"change_series_maps {tuple(stack.shape)}",
+         lambda: change_series_maps(stack, "NDVI"), stack[..., 0].numel() / 1e6),
+        (f"time series device part, {len(series)} dates of {h}x{w}",
+         lambda: date_stats(series, "NDVI"), len(series) * h * w / 1e6),
+        (f"comparison, {len(images)} images, three kinds",
+         lambda: comparison_analysis(images, kinds=cs.KINDS, with_figures=False),
+         sum(a.shape[0] * a.shape[1] for _, a in images) / 1e6),
+    ]
+    for n, (label, call, mpix) in enumerate(flows):
+        rows = profile_call(torch, label, call, mpix, calls,
+                            os.path.join(out_dir, f"torch_flow_trace_{n}.json"))
+        by = {}
+        for ms, _, name in rows:
+            by[cs.kernel_class(name)] = by.get(cs.kernel_class(name), 0.0) + ms
+        busy = sum(by.values())
+        if busy:
+            print("  by class: " + ", ".join(
+                f"{k} {v:.4f} ms ({v / busy:.1%})" for k, v in
+                sorted(by.items(), key=lambda kv: -kv[1])), flush=True)
 
 
 def main() -> int:
@@ -327,6 +382,8 @@ def main() -> int:
                     help="profile batch-8 1080p streaming dispatches instead of the frames")
     ap.add_argument("--batch", action="store_true",
                     help="profile the batch directory pipeline instead of the frames")
+    ap.add_argument("--change", action="store_true",
+                    help="profile phase 4f's change, time-series and comparison flows instead")
     ap.add_argument("--package-root", default=None,
                     help="profile the rgnir_torch package of this tree instead")
     args = ap.parse_args()
@@ -382,8 +439,10 @@ def main() -> int:
         profile_stream_session(torch, cs, smi)
     if args.batch:
         profile_batch(torch, cs, smi, args.calls, os.path.join(out_dir, "torch_batch_trace.json"))
+    if args.change:
+        profile_flows(torch, cs, args.calls, out_dir)
     for n, (label, kinds, with_hist, onepass) in enumerate(CONFIGS):
-        if args.only_mosaic or args.stream or args.batch:
+        if args.only_mosaic or args.stream or args.batch or args.change:
             break
 
         def call():
