@@ -90,6 +90,26 @@ Phases, each reported on its own line:
    exact); ``change_series_maps`` over 8 dates in one batched pass; the
    time series' device part (``timeseries.date_stats``) over the 8
    dates; ``comparison_analysis`` of four images in two shape groups;
+4g. the streamed gigapixel mosaic and the single-image flows: (i) the
+   ``jointhist`` kernel against its plain version on uniform bytes (1, 2
+   and 3 pairs), the smooth field, a constant band, 1,000,003 pixels of 3
+   and of 2 channels and a view at an odd address, timed on a 2048 x
+   32768 band with its bound and ``torch.bincount``'s time; (ii) the
+   closure's 65,536-value grid against the fused kernel's index map over
+   every byte pair, for each built-in kind and a registered one; (iii)
+   ``analyze_mosaic_streamed`` over a 32768 x 32768 mosaic in 16 bands of
+   2048 rows from ``default_rng((seed, band))`` with NDVI, GNDVI and
+   NDWI: equal to ``reduce="host"`` in every field and to
+   ``analyze_image_auto`` on the whole mosaic as one frame (exact value
+   statistics, histogram, n and coverage count; mean and std within
+   2e-6), jointhist launched 16 times and nothing else, its wall, MPix/s
+   and stages per band; (iv) four shards of the card on a 1-D mesh equal
+   to one, 4 launches a band; (v) one band yielded 33 times (2.21 GPix,
+   above 2^31) equal to 33 times its host histogram; (vi)
+   ``correct_file`` and ``visualize_correction_file`` (hist 1, fused 1),
+   ``export_processed_zip(figures=False)`` (fused 1, byte_hist 2,
+   q24_tail 1) and the NDVI report's device step and statistics text,
+   each against the same call on the CPU;
 5. the kernel self-test (``rgnir_torch.testing.selftest``), which must
    pass;
 6. a ``kernels`` JSON line for the records.
@@ -967,7 +987,8 @@ MOSAIC_PATH = ("hist", "fused", "byte_hist", "q24_tail")
 # each kernel body on four shards: per shard one hist and one fused launch,
 # two byte_hist rounds (round 0 is fused's) and one q24_tail pass, each
 # serving every kind
-MOSAIC_LAUNCHES = {"hist": 4, "fused": 4, "byte_hist": 8, "q24_tail": 4, "q24_onepass": 0}
+MOSAIC_LAUNCHES = {"hist": 4, "fused": 4, "byte_hist": 8, "q24_tail": 4, "q24_onepass": 0,
+                   "jointhist": 0}
 
 
 def ceil_to(x, m):
@@ -1250,7 +1271,8 @@ PACED_FPS = 30
 PACED_FRAMES = 60
 STREAM_MAX_CAPACITY = 4
 # each dispatch of a batch launches this set, once each (byte_hist: two rounds)
-STREAM_LAUNCHES = {"hist": 1, "fused": 1, "byte_hist": 2, "q24_tail": 1, "q24_onepass": 0}
+STREAM_LAUNCHES = {"hist": 1, "fused": 1, "byte_hist": 2, "q24_tail": 1, "q24_onepass": 0,
+                   "jointhist": 0}
 PRODUCER_WAIT_S = 180
 
 
@@ -1693,7 +1715,8 @@ COVERAGE_RTOL = 2.4e-7          # two float32 ulps
 COMPARE_SHAPES = (BATCH_TIFF_SHAPE,) * 3 + (BATCH_JPEG_SHAPE,)  # two shape groups
 # one analyze_image_auto call (one shape group): hist and fused once, two
 # byte_hist rounds and one q24_tail pass, each serving every kind
-GROUP_LAUNCHES = {"hist": 1, "fused": 1, "byte_hist": 2, "q24_tail": 1, "q24_onepass": 0}
+GROUP_LAUNCHES = {"hist": 1, "fused": 1, "byte_hist": 2, "q24_tail": 1, "q24_onepass": 0,
+                  "jointhist": 0}
 
 
 def displaced(img, dy, dx, seed, change=False):
@@ -1978,6 +2001,344 @@ def flow_checks(torch, wrappers, timer, smi):
     log(f"phase 4f took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 4g: the streamed gigapixel mosaic and the single-image flows ----------
+
+JOINT_BAND = (2048, 32768)       # one band of the mosaic: 67,108,864 pixels, 201 MB
+JOINT_PAIRS = {1: ((0, 2),), 2: ((0, 2), (1, 2)), 3: ((0, 1), (0, 2), (1, 2))}
+JOINT_PAIRS_C2 = {1: ((0, 1),), 2: ((0, 1), (1, 0)), 3: ((1, 1), (0, 1), (1, 0))}
+JOINT_ODD_N = 1_000_003          # not a multiple of 4
+GIGA_SIDE = 32768                # BENCHMARKS.md config 7: a 1.07 GPix mosaic
+GIGA_BAND_ROWS = JOINT_BAND[0]   # 16 bands
+GIGA_SHARDS = 4
+GIGA_REPEATS = 33                # one band 33 times: 2.21 GPix, above 2^31
+MOMENT_ATOL = 2e-6               # streamed float64 grid sums against float32 pixel sums
+REPORT_SHAPE = (512, 512)        # BASELINE config 1: a single-image report
+# the streamed mosaic launches jointhist once per band and shard, and
+# nothing else
+NO_LAUNCHES = {"hist": 0, "fused": 0, "byte_hist": 0, "q24_tail": 0, "q24_onepass": 0,
+               "jointhist": 0}
+
+
+def jointhist_checks(torch, timer, rates, band_shape=JOINT_BAND):
+    """(i) The jointhist kernel against its plain version: uniform bytes
+    (1, 2 and 3 pairs), the smooth field, a constant band, odd lengths
+    with three and two channels, a view at an odd address; then timed on
+    the band (2048 x 32768) with the main path's two pairs, with its
+    bound and ``torch.bincount``'s time over the same keys. Returns the
+    record."""
+    from rgnir_torch.kernels import jointhist as kj
+
+    def check(what, flat, pairs):
+        out = torch.zeros(len(pairs), 256, 256, dtype=torch.int32, device="cuda")
+        kj.joint_histograms(flat, pairs, out)
+        check_equal(torch, f"jointhist {what} {tuple(flat.shape)} {pairs}", out,
+                    kj.joint_histograms_plain(flat, pairs, torch.zeros_like(out)))
+        require(int(out.sum()) == flat.shape[0] * len(pairs), f"jointhist {what} total")
+
+    n = band_shape[0] * band_shape[1]
+    rng = np.random.default_rng((SEED, 70))
+    uniform = torch.as_tensor(rng.integers(0, 256, (n, 3), dtype=np.uint8), device="cuda")
+    smooth = torch.as_tensor(smooth_field((1,) + tuple(band_shape)).reshape(n, 3), device="cuda")
+    for p in (1, 2, 3):
+        check("uniform", uniform, JOINT_PAIRS[p])
+    check("smooth", smooth, JOINT_PAIRS[2])
+    check("constant", torch.full((n, 3), 77, dtype=torch.uint8, device="cuda"), JOINT_PAIRS[2])
+    odd3 = torch.as_tensor(rng.integers(0, 256, (JOINT_ODD_N, 3), dtype=np.uint8), device="cuda")
+    odd2 = torch.as_tensor(rng.integers(0, 256, (JOINT_ODD_N, 2), dtype=np.uint8), device="cuda")
+    for p in (1, 2, 3):
+        check("odd", odd3, JOINT_PAIRS[p])
+        check("odd C=2", odd2, JOINT_PAIRS_C2[p])
+    check("tail only", odd3[:3], JOINT_PAIRS[3])
+    check("odd address", uniform[1:JOINT_ODD_N + 1], JOINT_PAIRS[2])
+    log(f"kernels jointhist: equal to the plain version on uniform bytes ({n} pixels, 1-3 "
+        f"pairs), the smooth field, a constant band, {JOINT_ODD_N} pixels of 3 and 2 "
+        f"channels (1-3 pairs), 3 pixels and a view at an odd address")
+
+    pairs = JOINT_PAIRS[2]
+    bw, flops = rates
+    nbytes = n * 3 + len(pairs) * 65536 * 4
+    t_bytes, t_ops = nbytes / bw * 1e3, 8 * n * len(pairs) / flops * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    times = {}
+    for label, band in (("uniform", uniform), ("smooth", smooth)):
+        acc = torch.zeros(len(pairs), 256, 256, dtype=torch.int32, device="cuda")
+        keys = torch.cat([p * 65536 + ((band[:, a].long() << 8) | band[:, b].long())
+                          for p, (a, b) in enumerate(pairs)])
+        times[label] = (
+            timer.kernel(lambda: kj.joint_histograms(band, pairs, acc)),
+            timer.kernel(lambda: kj.joint_histograms_plain(band, pairs, torch.zeros_like(acc))),
+            timer.kernel(lambda: torch.bincount(keys, minlength=len(pairs) * 65536)))
+        del keys
+        log(f"kernel jointhist {label} band {band_shape[0]}x{band_shape[1]}x3, pairs {pairs}: "
+            f"{times[label][0]:.4f} ms, plain {times[label][1]:.4f} ms, torch.bincount "
+            f"{times[label][2]:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} ({nbytes} bytes)")
+    ms, plain_ms, library_ms = times["uniform"]
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes, bound=bound,
+                max_abs_err=0.0)
+
+
+def value_grid_checks(torch):
+    """(ii) The streamed closure's 65,536-value grid (identity LUTs,
+    ``kind_grids``) against the fused kernel's index map over every byte
+    pair, exactly: a 256 x 256 frame with the kind's first channel the
+    row and its second the column, white-balanced with identity bounds;
+    each built-in kind and a registered one."""
+    from rgnir_torch.config import IndexConfig, IndexKind, WBConfig, register_index
+    from rgnir_torch.kernels import fused as kf
+    from rgnir_torch.ops.indices import band_indices
+    from rgnir_torch.pipeline import gigapixel as gp
+
+    kinds = tuple(IndexKind.parse(k) for k in KINDS) + (register_index("GRID_GR", (1, 0)),)
+    a = torch.arange(256, dtype=torch.uint8, device="cuda")
+    for kind in kinds:
+        ia, ib = band_indices(kind)
+        frame = torch.zeros(1, 256, 256, 3, dtype=torch.uint8, device="cuda")
+        frame[0, :, :, ia] = a[:, None]
+        frame[0, :, :, ib] = a[None, :]
+        lo = torch.zeros(1, 3, device="cuda")
+        hi = torch.full((1, 3), 255.0, device="cuda")
+        out = kf.fused_analyze(frame, lo, hi, (kind,), with_renders=False, with_hist=False)
+        pairs, lookup = gp._pair_layout((kind,))
+        grids, _, _ = gp.kind_grids(np.ones((1, 256, 256), np.int64), pairs, lookup, (kind,),
+                                    WBConfig(), IndexConfig(), False, 65536)
+        check_equal(torch, f"value grid {kind.value}", out.idx[0, 0].reshape(-1).cpu(),
+                    torch.from_numpy(grids[kind][0]))
+    log(f"value grid: the closure's 65,536 index values equal the fused kernel's map over "
+        f"every byte pair for {[k.value for k in kinds]}")
+
+
+def numpy_bounds(marginal, n, p_low=2.0, p_high=98.0):
+    """``np.percentile``'s (p_low, p_high) of the channel that the int64
+    counts ``marginal`` describe: order statistics by searchsorted on the
+    cumulative counts, numpy's float32 two-sided lerp."""
+    cdf = np.cumsum(marginal)
+    out = []
+    for q in (p_low, p_high):
+        vi = q / 100.0 * (n - 1)
+        k = int(np.floor(vi))
+        t = np.float32(vi - k)
+        a = np.float32(np.searchsorted(cdf, k, side="right"))
+        b = np.float32(np.searchsorted(cdf, min(k + 1, n - 1), side="right"))
+        out.append(b - (b - a) * (np.float32(1) - t) if t >= 0.5 else a + (b - a) * t)
+    return out
+
+
+def same_streamed(what, got, want, kinds):
+    for k in kinds:
+        for f in ("mean", "median", "std", "min", "max", "coverage_pct", "n"):
+            require(getattr(got.stats[k], f) == getattr(want.stats[k], f),
+                    f"{what} {k} {f}: {getattr(got.stats[k], f)} vs {getattr(want.stats[k], f)}")
+        require(np.array_equal(got.stats[k].histogram, want.stats[k].histogram),
+                f"{what} {k} histogram")
+    require(np.array_equal(np.nan_to_num(got.wb_lo), np.nan_to_num(want.wb_lo))
+            and np.array_equal(np.nan_to_num(got.wb_hi), np.nan_to_num(want.wb_hi))
+            and np.array_equal(np.isnan(got.wb_lo), np.isnan(want.wb_lo)), f"{what} wb bounds")
+    require(got.n_pixels == want.n_pixels and got.bands == want.bands,
+            f"{what} pixels and bands")
+
+
+def stage_line(res):
+    s, b = res.stages, res.bands
+    if not s:
+        return "stages not measured (not on CUDA)"
+    return (f"per band: host copy into pinned memory {s['host_copy_s'] / b * 1e3:.4f} ms "
+            f"({s['bytes_sent'] / s['host_copy_s'] / 1e9:.4f} GB/s), copy to the card "
+            f"{s['to_device_s'] / b * 1e3:.4f} ms ({s['bytes_sent'] / s['to_device_s'] / 1e9:.4f} "
+            f"GB/s), kernel {s['kernel_s'] / b * 1e3:.4f} ms; {s['bytes_sent'] / 1e9:.4f} GB sent")
+
+
+def streamed_mosaic_checks(torch, wrappers, smi, side=GIGA_SIDE, band_rows=GIGA_BAND_ROWS,
+                           repeats=GIGA_REPEATS):
+    """(iii)-(v) ``analyze_mosaic_streamed`` on the card: a side x side
+    mosaic in bands of ``band_rows`` rows from ``default_rng((SEED,
+    band))`` with NDVI, GNDVI and NDWI, the device reduction against the
+    host one and against the whole mosaic analysed as one frame; four
+    shards of the card against one; one band yielded ``repeats`` times.
+    Returns the launches of the main run."""
+    import itertools
+
+    from rgnir_torch.config import IndexConfig, IndexKind, WBConfig
+    from rgnir_torch.native import jointhist
+    from rgnir_torch.parallel import make_mesh
+    from rgnir_torch.pipeline import gigapixel as gp
+    from rgnir_torch.pipeline.dispatch import analyze_image_auto
+
+    t0 = time.perf_counter()
+    bands = side // band_rows
+    mosaic = np.empty((side, side, 3), dtype=np.uint8)
+    for b in range(bands):
+        mosaic[b * band_rows:(b + 1) * band_rows] = np.random.default_rng((SEED, b)).integers(
+            0, 256, (band_rows, side, 3), dtype=np.uint8)
+    px = side * side
+    log(f"streamed mosaic {side}x{side} ({px / 1e9:.4f} GPix, {bands} bands of {band_rows} rows "
+        f"from default_rng((seed, band))): made in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (iii) the device reduction, the main run: jointhist once per band
+    def streamed():
+        return gp.analyze_mosaic_streamed(mosaic, kinds=KINDS, band_rows=band_rows,
+                                          device="cuda")
+
+    t0 = time.perf_counter()
+    dev, launches = count_launches(torch, wrappers, ("jointhist",), "streamed mosaic", streamed)
+    wall = time.perf_counter() - t0
+    require(launches == dict(NO_LAUNCHES, jointhist=bands), f"streamed launches {launches}")
+    t0 = time.perf_counter()
+    host = gp.analyze_mosaic_streamed(mosaic, kinds=KINDS, band_rows=band_rows, reduce="host")
+    host_wall = time.perf_counter() - t0
+    same_streamed("device vs host reduction", dev, host, KINDS)
+    log(f"streamed mosaic (reduce='device'): wall {wall:.4f} s, {px / wall / 1e6:.4f} MPix/s; "
+        f"{stage_line(dev)}; launches {launches}; equal to reduce='host' (native jointhist, "
+        f"wall {host_wall:.4f} s, {px / host_wall / 1e6:.4f} MPix/s) in every field [{smi}]")
+
+    # against the whole mosaic as one frame on the card
+    kinds = tuple(IndexKind.parse(k) for k in KINDS)
+    pairs, lookup = gp._pair_layout(kinds)
+    total, _, _ = gp._host_reduce(gp._validated(gp.iter_row_bands(mosaic, band_rows)), pairs)
+    grids, _, _ = gp.kind_grids(total, pairs, lookup, kinds, WBConfig(), IndexConfig(), True, px)
+    res = analyze_image_auto(mosaic, kinds=KINDS, with_renders=False, device="cuda")
+    for kind in kinds:
+        k = kind.value
+        g, r = dev.stats[k], res.stats[k]
+        for f in ("min", "max", "median"):
+            require(float(getattr(g, f)) == float(getattr(r, f)),
+                    f"streamed {k} {f}: {getattr(g, f)} vs the frame's {getattr(r, f)}")
+        require(np.array_equal(g.histogram, r.histogram.cpu().numpy()), f"streamed {k} histogram")
+        require(int(g.n) == int(r.n) == px, f"streamed {k} n")
+        v, c = grids[kind]
+        above = int(c[v > np.float32(kind.coverage_threshold)].sum())
+        require(above == int((res.indices[k] > kind.coverage_threshold).sum()),
+                f"streamed {k} coverage count")
+        require(float(g.coverage_pct) == float(r.coverage_pct), f"streamed {k} coverage")
+        for f in ("mean", "std"):
+            err = abs(float(getattr(g, f)) - float(getattr(r, f)))
+            require(err <= MOMENT_ATOL, f"streamed {k} {f}: {err}")
+    peak = torch.cuda.max_memory_allocated()
+    del res
+    torch.cuda.empty_cache()
+    log(f"streamed mosaic: min, max, median, the 50-bin histogram, n and the coverage count "
+        f"equal those of analyze_image_auto on the whole {side}x{side} frame on the card, "
+        f"mean and std within {MOMENT_ATOL}; peak device memory of the phase {peak} bytes")
+
+    # (iv) four shards of the one card on a 1-D mesh
+    mesh = make_mesh((GIGA_SHARDS,), ("d",), devices=["cuda:0"] * GIGA_SHARDS)
+    sharded, launches4 = count_launches(
+        torch, wrappers, ("jointhist",), "sharded streamed mosaic",
+        lambda: gp.analyze_mosaic_streamed(mosaic, kinds=KINDS, band_rows=band_rows, mesh=mesh))
+    require(launches4 == dict(NO_LAUNCHES, jointhist=GIGA_SHARDS * bands),
+            f"sharded launches {launches4}")
+    same_streamed("four shards vs one", sharded, dev, KINDS)
+    log(f"streamed mosaic on {GIGA_SHARDS} shards of cuda:0: equal to one shard in every "
+        f"field; launches {launches4} ({GIGA_SHARDS} per band)")
+
+    # (v) above 2^31 pixels: the first band, yielded `repeats` times
+    band = mosaic[:band_rows]
+    n_big = repeats * band.shape[0] * band.shape[1]
+    big, launches_big = count_launches(
+        torch, wrappers, ("jointhist",), "streamed above 2^31",
+        lambda: gp.analyze_mosaic_streamed(itertools.repeat(band, repeats), kinds=KINDS,
+                                           device="cuda"))
+    require(launches_big == dict(NO_LAUNCHES, jointhist=repeats), f"launches {launches_big}")
+    hist = jointhist.accumulate(band.reshape(-1, 3), pairs).astype(np.int64) * repeats
+    want = gp._finalize(hist, pairs, lookup, kinds, WBConfig(), IndexConfig(), True, n_big,
+                        repeats)
+    same_streamed("above 2^31", big, want, KINDS)
+    for ch, marginal in ((0, hist[0].sum(axis=1)), (2, hist[0].sum(axis=0)),
+                         (1, hist[1].sum(axis=1))):
+        lo, hi = numpy_bounds(marginal, n_big)
+        require(big.wb_lo[ch] == lo and big.wb_hi[ch] == hi, f"above 2^31 wb bounds {ch}")
+    require(big.n_pixels == n_big, "above 2^31 pixels")
+    log(f"streamed {repeats} x one {band_rows}x{side} band ({n_big} pixels; 2^31 is "
+        f"{2 ** 31}): equal "
+        f"to {repeats} times the band's host histogram in every field, WB bounds numpy's from "
+        f"int64 counts; launches {launches_big}; {stage_line(big)}")
+    return launches
+
+
+def single_flow_checks(torch, wrappers):
+    """(vi) The single-image flows on the card, each against the same call
+    on the CPU: ``correct_file`` and ``visualize_correction_file`` on a
+    1536 x 2048 TIFF (hist 1, fused 1), ``export_processed_zip``
+    without figures with three kinds (fused 1, byte_hist 2, q24_tail 1),
+    and the NDVI report's device step and statistics text on a 512 x 512
+    PNG."""
+    import io
+    import shutil
+    import zipfile
+
+    from PIL import Image
+
+    from rgnir_torch.ops.stats import to_ndvi_report_dict
+    from rgnir_torch.pipeline import export, rgn, single
+
+    root = Path(__file__).resolve().parent / "build" / f"chip_smoke_single_{os.getpid()}"
+    root.mkdir(parents=True)
+    try:
+        tif = root / "survey.tif"
+        Image.fromarray(survey_frame(0, BATCH_TIFF_SHAPE)).save(tif)
+        wb_path = ("hist", "fused")
+        for name, fn in (("correct_file", rgn.correct_file),
+                         ("visualize_correction_file", rgn.visualize_correction_file)):
+            got, launches = count_launches(torch, wrappers, wb_path, name,
+                                           lambda: fn(tif, root / f"{name}_cuda.png", device="cuda"))
+            require(launches["hist"] == 1 and launches["fused"] == 1, f"{name} {launches}")
+            want = fn(tif, root / f"{name}_cpu.png", device="cpu")
+            require(np.array_equal(np.asarray(got), np.asarray(want)), f"{name} bytes")
+            require((root / f"{name}_cuda.png").read_bytes()
+                    == (root / f"{name}_cpu.png").read_bytes(), f"{name} saved file")
+        log(f"correct_file and visualize_correction_file on a {BATCH_TIFF_SHAPE[0]}x"
+            f"{BATCH_TIFF_SHAPE[1]} TIFF: bytes and saved files equal to the CPU's; "
+            f"launches hist 1, fused 1 each")
+
+        corrected = rgn.correct_file(tif, device="cuda")
+        got, launches = count_launches(
+            torch, wrappers, ("fused", "byte_hist", "q24_tail"), "export",
+            lambda: export.export_processed_zip(corrected, KINDS, figures=False, device="cuda"))
+        require(launches == dict(NO_LAUNCHES, fused=1, byte_hist=2, q24_tail=1),
+                f"export launches {launches}")
+        want = export.export_processed_zip(corrected, KINDS, figures=False, device="cpu")
+        zg, zw = zipfile.ZipFile(io.BytesIO(got)), zipfile.ZipFile(io.BytesIO(want))
+        require(zg.namelist() == zw.namelist(), "export entry names")
+        for name in zg.namelist():
+            require(zg.read(name) == zw.read(name), f"export entry {name}")
+        log(f"export_processed_zip(figures=False) of {KINDS}: entries {zg.namelist()} equal to "
+            f"the CPU's; launches {launches}")
+
+        png = root / "report.png"
+        Image.fromarray(survey_frame(1, REPORT_SHAPE)).save(png)
+        img = np.asarray(Image.open(png).convert("RGB"))
+        (ndvi, st), launches = count_launches(
+            torch, wrappers, ("fused", "byte_hist", "q24_tail"), "report",
+            lambda: single.ndvi_report_data(img, device="cuda"))
+        rndvi, rst = single.ndvi_report_data(img, device="cpu")
+        check_close("report ndvi", torch.from_numpy(ndvi), torch.from_numpy(rndvi), IDX_ATOL)
+        for f in ("median", "min", "max", "n"):
+            require(getattr(st, f) == getattr(rst, f), f"report {f}")
+        require(np.array_equal(st.histogram, rst.histogram), "report histogram")
+        require(abs(float(st.mean) - float(rst.mean)) <= MEAN_ATOL, "report mean")
+        text = single.statistics_text(to_ndvi_report_dict(st))
+        require(text == single.statistics_text(to_ndvi_report_dict(rst)), "report text")
+        log(f"NDVI report {REPORT_SHAPE[0]}x{REPORT_SHAPE[1]} PNG: the device step equals the "
+            f"CPU's (map within {IDX_ATOL}; median, min, max, n, histogram exact; mean within "
+            f"{MEAN_ATOL}); statistics text equal; launches {launches}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def gigapixel_checks(torch, wrappers, timer, rates, smi):
+    """Phase 4g: (i) the jointhist kernel, (ii) the value grid, (iii)-(v)
+    the streamed mosaic, (vi) the single-image flows. Returns the
+    jointhist record and the main run's launches."""
+    t_phase = time.perf_counter()
+    record = jointhist_checks(torch, timer, rates)
+    value_grid_checks(torch)
+    launches = streamed_mosaic_checks(torch, wrappers, smi)
+    single_flow_checks(torch, wrappers)
+    log(f"phase 4g took {time.perf_counter() - t_phase:.1f} s")
+    return record, launches
+
+
 KERNEL_SOURCES = {
     "hist": ("rgnir_torch/csrc/hist.cu", "rgnir_tpu/kernels/hist.py:39"),
     "fused": ("rgnir_torch/csrc/fused.cu", "rgnir_tpu/kernels/fused.py:78"),
@@ -1996,6 +2357,9 @@ KERNEL_SOURCES = {
     "q24_tail_live_rc": ("rgnir_torch/csrc/select.cu", "rgnir_tpu/kernels/select.py:220"),
     # the one-pass select's prefix mode, launched by masked_median_rows(n_valid=)
     "q24_onepass_n_valid": ("rgnir_torch/csrc/onepass.cu", "rgnir_tpu/kernels/select.py:333"),
+    # the streamed mosaic's joint histograms, in place of a jnp one-hot
+    # contraction (not a Pallas kernel)
+    "jointhist": ("rgnir_torch/csrc/jointhist.cu", "rgnir_tpu/pipeline/gigapixel.py:87"),
 }
 
 
@@ -2073,6 +2437,8 @@ def main() -> int:
     stream_checks(torch, WRAPPERS, smi)
     batch_checks(torch, WRAPPERS, smi)
     flow_checks(torch, WRAPPERS, timer, smi)
+    records["jointhist"], giga_launches = gigapixel_checks(torch, WRAPPERS, timer, rates, smi)
+    path_launches["jointhist"] = giga_launches["jointhist"]
 
     # 5. the kernel self-test
     from rgnir_torch.testing import selftest

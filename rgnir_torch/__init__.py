@@ -3,8 +3,9 @@ CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of ``rgnir_tpu``'s analysis pass (white balance, NDVI/GNDVI/NDWI
 index maps, statistics, colormap renders). It imports neither JAX nor
-the JAX package. Entry point: :func:`analyze_image_auto`, on CUDA unless
-the caller passes ``device="cpu"``.
+the JAX package. Entry points: :func:`analyze_image_auto` and, for a
+mosaic of any size streamed in bands, :func:`analyze_mosaic_streamed`,
+on CUDA unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -31,6 +32,7 @@ from rgnir_torch.ops import (
 from rgnir_torch.ops.stats import IndexStats, index_stats, to_analyze_index_dict
 from rgnir_torch.pipeline.dispatch import analyze_image_auto
 from rgnir_torch.pipeline.fused import AnalyzeResult, analyze_image
+from rgnir_torch.pipeline.gigapixel import StreamedMosaicResult, analyze_mosaic_streamed
 
 __all__ = [
     "ALL_INDICES",
@@ -40,10 +42,12 @@ __all__ = [
     "IndexKind",
     "IndexStats",
     "RenderConfig",
+    "StreamedMosaicResult",
     "TileConfig",
     "WBConfig",
     "analyze_image",
     "analyze_image_auto",
+    "analyze_mosaic_streamed",
     "channel_histograms",
     "compute_index",
     "import_index_specs",

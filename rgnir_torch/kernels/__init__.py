@@ -7,6 +7,7 @@ PyTorch version for a CPU tensor, and counts its launches in its
 
 from rgnir_torch.kernels.fused import fused_analyze
 from rgnir_torch.kernels.hist import channel_histograms
+from rgnir_torch.kernels.jointhist import joint_histograms
 from rgnir_torch.kernels.pipeline import analyze_image_kernel
 from rgnir_torch.kernels.select import (
     byte_hist,
@@ -25,6 +26,7 @@ WRAPPERS = {
     "byte_hist": byte_hist,
     "q24_tail": q24_tail,
     "q24_onepass": q24_onepass,
+    "jointhist": joint_histograms,
 }
 
 __all__ = [
@@ -33,6 +35,7 @@ __all__ = [
     "byte_hist",
     "channel_histograms",
     "fused_analyze",
+    "joint_histograms",
     "masked_median",
     "masked_median_rows",
     "masked_median_sharded",

@@ -24,7 +24,7 @@ from rgnir_torch import _shlib
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rgnir_torch_kernels"
-SOURCES = ("hist", "fused", "select", "onepass")
+SOURCES = ("hist", "fused", "select", "onepass", "jointhist")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

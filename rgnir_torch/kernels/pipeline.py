@@ -67,13 +67,20 @@ def analyze_image_kernel(
     with_renders: bool = True,
     with_hist: bool = True,
     select_onepass: Optional[bool] = None,
+    with_wb: bool = True,
 ) -> AnalyzeResult:
     """Kernel-backed analysis of ``(H, W, 3)`` or ``(B, H, W, 3)`` uint8
     frames on the tensor's device. Same result as
     ``pipeline.fused.analyze_image``; ``with_hist=False`` leaves
     ``IndexStats.histogram`` None. ``select_onepass=True`` takes the
     medians by the one-pass select kernel (frames of at most 1024^2
-    pixels) instead of the 3-pass select; the results are the same."""
+    pixels) instead of the 3-pass select; the results are the same.
+
+    ``with_wb=False`` computes the indices on the raw bands: no
+    histogram is taken, and the fused kernel runs with the bounds
+    ``lo = 0``, ``hi = 255``, under which its white balance
+    ``floor(clip((x - 0) / 255 * 255, 0, 255))`` is ``x`` for every byte
+    in float32 (a test checks all 256); ``wb`` is the input."""
     kinds = tuple(IndexKind.parse(k) for k in kinds)
     batched = img.dim() == 4
     frames = img if batched else img[None]
@@ -90,15 +97,20 @@ def analyze_image_kernel(
     def unbatch(t: torch.Tensor) -> torch.Tensor:
         return t if batched else t[0]
 
-    hist = channel_histograms(frames)                           # (B, 3, 256)
-    lo, hi = wb_bounds_from_histogram(hist, n=n, cfg=WBConfig())  # (B, 3)
+    if with_wb:
+        hist = channel_histograms(frames)                       # (B, 3, 256)
+        lo, hi = wb_bounds_from_histogram(hist, n=n, cfg=WBConfig())  # (B, 3)
+    else:
+        lo = torch.zeros(b, 3, dtype=torch.float32, device=img.device)
+        hi = torch.full((b, 3), 255.0, dtype=torch.float32, device=img.device)
     if not kinds:
         # White balance alone (a batch run that writes only the WB
         # frames). The fused kernel needs a kind: it runs one whose
         # outputs are dropped, with no renders, histogram or select.
         out = fused_analyze(frames, lo, hi, (IndexKind.NDVI,), with_renders=False,
                             with_hist=False, round0=[False])
-        return AnalyzeResult(wb=unbatch(out.wb), indices={}, stats={}, renders={})
+        return AnalyzeResult(wb=unbatch(out.wb if with_wb else frames), indices={},
+                             stats={}, renders={})
     out = fused_analyze(frames, lo, hi, kinds, with_renders=with_renders,
                         with_hist=with_hist,
                         round0=[k < nc for k in range(nk)])
@@ -133,5 +145,5 @@ def analyze_image_kernel(
             histogram=unbatch(out.hist50[:, k]) if with_hist else None,
             n=unbatch(torch.full((b,), n, dtype=torch.int32, device=img.device)),
         )
-    return AnalyzeResult(wb=unbatch(out.wb), indices=indices, stats=stats,
-                         renders=renders)
+    return AnalyzeResult(wb=unbatch(out.wb if with_wb else frames), indices=indices,
+                         stats=stats, renders=renders)

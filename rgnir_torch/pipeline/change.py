@@ -74,9 +74,16 @@ def change_series_maps(
 
     Returns ``(diffs (T-1, H, W), shifts (T-1, 2), stats)`` where stats
     is ``{"mean", "std", "min", "max"}`` per pair (``std`` the
-    population deviation, as ``jnp.std``).
+    population deviation, as ``jnp.std``). A stack of fewer than two
+    frames has no pair: the results are empty, and no FFT runs.
     """
     kind = IndexKind.parse(kind)
+    if stack_wb.shape[0] < 2:
+        dev = stack_wb.device
+        empty = torch.zeros(0, dtype=torch.float32, device=dev)
+        return (torch.zeros((0,) + tuple(stack_wb.shape[1:3]), dtype=torch.float32, device=dev),
+                torch.zeros(0, 2, dtype=torch.float32, device=dev),
+                {k: empty for k in ("mean", "std", "min", "max")})
     early, late = stack_wb[:-1], stack_wb[1:]
     aligned, shifts = align_images(early, late, upsample_factor=upsample_factor)
     diffs = compute_index(aligned, kind) - compute_index(early, kind)

@@ -37,18 +37,23 @@ class CompareResult:
 
 
 def unique_names(names: Sequence[str]) -> List[str]:
-    """Repeated names get a suffix: ``field.png``, ``field.png (2)``.
+    """Repeated names get a suffix: ``field.png``, ``field.png (2)``,
+    the suffix raised until the name is unused, so ``a``, ``a``,
+    ``a (2)`` give ``a``, ``a (2)``, ``a (2) (2)``.
 
     Stats are keyed by filename (reference contract,
     process-images.py:765); duplicate basenames (2024/field.png and
     2025/field.png) would otherwise overwrite each other's stats and
     mislabel the figure panels."""
     out: List[str] = []
-    seen: Dict[str, int] = {}
+    used = set()
     for name in names:
-        n = seen.get(name, 0) + 1
-        seen[name] = n
-        out.append(name if n == 1 else f"{name} ({n})")
+        unique, n = name, 1
+        while unique in used:
+            n += 1
+            unique = f"{name} ({n})"
+        used.add(unique)
+        out.append(unique)
     return out
 
 

@@ -24,11 +24,13 @@ def analyze_image_auto(
     with_renders: bool = True,
     with_hist: bool = True,
     device: Optional[Union[str, torch.device]] = None,
+    with_wb: bool = True,
 ) -> AnalyzeResult:
     """Analyze ``(H, W, 3)`` or ``(B, H, W, 3)`` uint8 frames (a tensor
     or a numpy array). ``with_hist=False`` leaves
-    ``IndexStats.histogram`` None."""
+    ``IndexStats.histogram`` None; ``with_wb=False`` computes the
+    indices on the raw bands."""
     return analyze_image_kernel(
         as_image(img, device), kinds=kinds, with_renders=with_renders,
-        with_hist=with_hist,
+        with_hist=with_hist, with_wb=with_wb,
     )

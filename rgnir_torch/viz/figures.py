@@ -10,15 +10,16 @@ use them: the card's machine has no matplotlib, so figures are composed
 on machines that have it (the CPU tests hold them equal to the JAX
 package's). The comparison, time-series and change figures serve
 ``pipeline.compare``, ``pipeline.timeseries`` and ``pipeline.change``;
-the histogram and side-by-side figures wait for their pipelines.
-Counterpart: ``rgnir_tpu/viz/figures.py:21-447``.
+the histogram figure ``pipeline.single`` and the side-by-side canvas
+``pipeline.rgn``. Counterpart: ``rgnir_tpu/viz/figures.py``.
 """
 
 from __future__ import annotations
 
 import io
+import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -452,3 +453,92 @@ def render_change_figure(
         ax.axis("off")
     fig.tight_layout()
     return _fig_to_pil(fig)
+
+
+def render_histogram_figure(
+    hist_counts: np.ndarray,
+    kind: Union[IndexKind, str] = IndexKind.NDVI,
+    bins_range: Tuple[float, float] = (-1.0, 1.0),
+    out_path=None,
+):
+    """Index-value distribution (process-ndvi.py:96-102): 50 bins over
+    (-1, 1), 10x6 in. Takes the device-computed histogram counts and
+    draws the same bars ``plt.hist`` would.
+
+    With ``out_path`` the figure is written straight to disk with plain
+    ``savefig`` (default bbox, as the reference's ``plt.savefig``,
+    process-ndvi.py:102) and None is returned; without it, a tight-bbox
+    Pillow image. The ``out_path`` route reuses one cached Agg figure
+    per (bins, kind, range) layout and updates only the bar heights and
+    the autoscale, so its pixels equal a from-scratch render's."""
+    kind = IndexKind.parse(kind)
+    counts = np.asarray(hist_counts)
+    if out_path is not None:
+        _HIST_FIG_CACHE.save(counts, kind, bins_range, out_path)
+        return None
+    edges = np.linspace(bins_range[0], bins_range[1], counts.size + 1)
+    fig = _new_figure((10, 6))
+    ax = fig.add_subplot(111)
+    ax.bar(edges[:-1], counts, width=np.diff(edges), align="edge")
+    ax.set_title(f"Distribution of {kind.value} Values")
+    ax.set_xlabel(kind.value)
+    ax.set_ylabel("Pixel Count")
+    return _fig_to_pil(fig, pad_inches=0.1)
+
+
+class _HistFigureWriter:
+    """One reused histogram figure for the report flow: constructing a
+    figure costs a large share of a render, and a serving process writes
+    many reports. Bar heights are updated in place; the data limits and
+    the autoscale are set as a fresh ``ax.bar`` would set them, so a
+    reused render is byte-identical to a fresh one."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._key = None
+        self._fig = None
+        self._ax = None
+        self._bars = None
+
+    def save(self, counts: np.ndarray, kind, bins_range, path) -> None:
+        from matplotlib.backends.backend_agg import FigureCanvasAgg
+        from matplotlib.transforms import Bbox
+
+        key = (counts.size, kind, tuple(bins_range))
+        with self._lock:
+            if self._key != key:
+                edges = np.linspace(bins_range[0], bins_range[1], counts.size + 1)
+                fig = _new_figure((10, 6))
+                FigureCanvasAgg(fig)
+                ax = fig.add_subplot(111)
+                bars = ax.bar(edges[:-1], counts, width=np.diff(edges), align="edge")
+                ax.set_title(f"Distribution of {kind.value} Values")
+                ax.set_xlabel(kind.value)
+                ax.set_ylabel("Pixel Count")
+                self._key, self._fig, self._ax, self._bars = key, fig, ax, bars
+            else:
+                for b, c in zip(self._bars, counts):
+                    b.set_height(c)
+                # the data limits a fresh ax.bar would give (the union of
+                # the bars, whose bases are at 0), then the autoscale, so
+                # the axis range and every pixel match a fresh figure
+                lo, hi = bins_range
+                ymax = float(counts.max()) if counts.size else 1.0
+                self._ax.dataLim.set(Bbox.from_extents(lo, min(0.0, ymax), hi, ymax))
+                self._ax.autoscale_view()
+            self._fig.savefig(path, format="png", pil_kwargs={"compress_level": 1})
+
+
+_HIST_FIG_CACHE = _HistFigureWriter()
+
+
+def side_by_side_canvas(left, right):
+    """Two Pillow images pasted into a double-width canvas
+    (process-rgn.py:51-68 ``visualize_correction``)."""
+    from PIL import Image
+
+    w, h = left.size
+    canvas = Image.new("RGB", (w * 2, h))
+    canvas.paste(left, (0, 0))
+    canvas.paste(right, (w, 0))
+    return canvas

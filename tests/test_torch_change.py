@@ -187,6 +187,19 @@ def test_change_series_maps_match_jax(hw, upsample_factor):
     assert np.abs(stats["std"] - d64.std(axis=(1, 2), ddof=1)).max() > 1e-7
 
 
+def test_change_series_maps_one_frame_is_empty_as_in_jax():
+    """A one-frame stack has no pair: empty diffs, shifts and statistics,
+    as the JAX package's vmap over zero pairs gives (no FFT runs)."""
+    stack = series_stack((48, 64))[:1]
+    diffs, shifts, stats = tchange.change_series_maps(torch.from_numpy(stack), "NDVI")
+    jd, js, jst = jchange.change_series_maps(jnp.asarray(stack), "NDVI")
+    assert diffs.shape == np.asarray(jd).shape == (0, 48, 64)
+    assert shifts.shape == np.asarray(js).shape == (0, 2)
+    assert diffs.dtype == shifts.dtype == torch.float32
+    for k, v in stats.items():
+        assert v.shape == np.asarray(jst[k]).shape == (0,), k
+
+
 def test_change_series_equals_change_maps_pair_by_pair():
     frames = [survey(64, 80, seed=4)]
     for i, (dy, dx) in enumerate([(1, 2), (-3, 0)]):
@@ -352,6 +365,29 @@ def test_comparison_matches_jax():
     for g, w in zip(got.wb_arrays, want.wb_arrays):
         np.testing.assert_array_equal(g, w)
     assert got.original_figure is None and got.index_figures == {}
+
+
+def test_unique_names_raise_the_suffix_until_unused():
+    names = ["a", "a", "a (2)"]
+    assert tcompare.unique_names(names) == ["a", "a (2)", "a (2) (2)"]
+    assert tcompare.unique_names(["a", "a (2)", "a"]) == ["a", "a (2)", "a (3)"]
+    assert tcompare.unique_names(["x", "x", "x"]) == ["x", "x (2)", "x (3)"]
+
+
+def test_comparison_three_colliding_names_keep_three_entries():
+    """``a``, ``a``, ``a (2)``: the JAX package names the second and third
+    image ``a (2)`` both, so one's statistics overwrite the other's
+    (ROADMAP Queue 3, pinned here); the port keeps all three."""
+    images = [(n, survey(64, 80, seed=70 + i)) for i, n in enumerate(["a", "a", "a (2)"])]
+    want = jcompare.comparison_analysis(images, kinds=("NDVI",), with_figures=False)
+    assert list(want.index_stats["NDVI"]) == ["a", "a (2)"]
+    got = tcompare.comparison_analysis(images, kinds=("NDVI",), with_figures=False,
+                                       device="cpu")
+    assert list(got.index_stats["NDVI"]) == ["a", "a (2)", "a (2) (2)"]
+    # each image's statistics are its own: the third is the JAX package's
+    # surviving "a (2)" entry, which the third image overwrote
+    assert_stat_dicts(got.index_stats["NDVI"]["a (2) (2)"], want.index_stats["NDVI"]["a (2)"])
+    assert_stat_dicts(got.index_stats["NDVI"]["a"], want.index_stats["NDVI"]["a"])
 
 
 def test_comparison_figures_match_jax():

@@ -636,3 +636,70 @@ def test_cuda_comparison_matches_cpu(cuda):
               ("a.tif", chip_smoke.survey_frame(2, (512, 640))),
               ("c.jpg", chip_smoke.survey_frame(3, (480, 640)))]
     chip_smoke.compare_checks(torch, tk.WRAPPERS, images, KINDS, groups=2, max_dim=320)
+
+
+@pytest.mark.cuda
+def test_cuda_jointhist_matches_plain(cuda):
+    """Phase 4g (i) at a band of 64 x 1024: uniform, smooth, constant,
+    odd lengths of 3 and 2 channels, 1-3 pairs, an odd address."""
+    r = chip_smoke.jointhist_checks(torch, chip_smoke.Timer(torch),
+                                    chip_smoke.card_rates(torch.cuda.get_device_name(0)),
+                                    band_shape=(64, 1024))
+    assert r["max_abs_err"] == 0.0 and r["bound"][1] == "bytes"
+
+
+@pytest.mark.cuda
+def test_cuda_value_grid_equals_fused(cuda):
+    chip_smoke.value_grid_checks(torch)
+
+
+@pytest.mark.cuda
+def test_cuda_streamed_mosaic_matches_host_and_frame(cuda):
+    """Phase 4g (iii)-(v) at 2048^2 in bands of 256 rows: the device
+    reduction against the host one and the whole frame, four shards
+    against one, one band three times."""
+    launches = chip_smoke.streamed_mosaic_checks(torch, tk.WRAPPERS, "", side=2048,
+                                                 band_rows=256, repeats=3)
+    assert launches["jointhist"] == 8
+
+
+@pytest.mark.cuda
+def test_cuda_single_image_flows_match_cpu(cuda):
+    chip_smoke.single_flow_checks(torch, tk.WRAPPERS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+def test_cuda_kernel_path_without_wb_matches_plain(cuda, shape):
+    """with_wb=False: no hist launch; the fused kernel with identity
+    bounds equals the plain path on the raw bands."""
+    img = torch.from_numpy(_frames(14, shape)).to(cuda)
+    got, launches = chip_smoke.count_launches(
+        torch, tk.WRAPPERS, DEFAULT_PATH - {"hist"}, "without wb",
+        lambda: analyze_image_kernel(img, kinds=KINDS, with_wb=False))
+    want = analyze_image(img, kinds=KINDS, with_wb=False, device=cuda)
+    assert torch.equal(got.wb, img)
+    for k in KINDS:
+        assert torch.equal(got.renders[k], want.renders[k])
+        assert float((got.indices[k] - want.indices[k]).abs().max()) <= IDX_ATOL
+        g, w = got.stats[k], want.stats[k]
+        for f in ("min", "max", "median", "histogram"):
+            assert torch.equal(getattr(g, f), getattr(w, f)), (k, f)
+        assert float((g.mean - w.mean).abs().max()) <= MEAN_ATOL
+        assert float((g.std ** 2 - w.std ** 2).abs().max()) <= VAR_ATOL
+    # the identity over every byte, in the kernel
+    every = torch.arange(256, dtype=torch.uint8, device=cuda).reshape(1, 16, 16, 1)
+    every = every.expand(1, 16, 16, 3).contiguous()
+    out = tk.fused_analyze(every, torch.zeros(1, 3, device=cuda),
+                           torch.full((1, 3), 255.0, device=cuda), ("NDVI",))
+    assert torch.equal(out.wb, every)
+
+
+@pytest.mark.cuda
+def test_cuda_change_series_one_frame_is_empty(cuda):
+    from rgnir_torch.pipeline.change import change_series_maps
+
+    stack = torch.from_numpy(_frames(15, (1, 48, 64))).to(cuda)
+    diffs, shifts, stats = change_series_maps(stack, "NDVI")
+    assert diffs.shape == (0, 48, 64) and shifts.shape == (0, 2)
+    assert diffs.device.type == "cuda" and all(v.shape == (0,) for v in stats.values())

@@ -193,7 +193,10 @@ def test_cpu_tensors_take_the_plain_versions():
     assert {k: w.launches for k, w in tk.WRAPPERS.items()} == before
     tk.masked_median_rows(rows, out.r0[:, :1].reshape(1, 256), onepass=True)
     assert {k: w.launches for k, w in tk.WRAPPERS.items()} == before
-    assert set(tk.WRAPPERS) == {"hist", "fused", "byte_hist", "q24_tail", "q24_onepass"}
+    tk.joint_histograms(img.reshape(-1, 3), ((0, 2),), torch.zeros(1, 256, 256, dtype=torch.int32))
+    assert {k: w.launches for k, w in tk.WRAPPERS.items()} == before
+    assert set(tk.WRAPPERS) == {"hist", "fused", "byte_hist", "q24_tail", "q24_onepass",
+                                "jointhist"}
 
 
 def test_non_cuda_device_raises():
