@@ -91,10 +91,13 @@ Phases, each reported on its own line:
    time series' device part (``timeseries.date_stats``) over the 8
    dates; ``comparison_analysis`` of four images in two shape groups;
 4g. the streamed gigapixel mosaic and the single-image flows: (i) the
-   ``jointhist`` kernel against its plain version on uniform bytes (1, 2
-   and 3 pairs), the smooth field, a constant band, 1,000,003 pixels of 3
-   and of 2 channels and a view at an odd address, timed on a 2048 x
-   32768 band with its bound and ``torch.bincount``'s time; (ii) the
+   ``jointhist`` kernel against its plain version, exactly, on uniform
+   bytes (1-5 and 8 pairs, repeated and (a, a) pairs), first channels
+   all >= 128 and all < 128, the smooth field, a constant band, a quarter
+   band at its offset, C = 1 and 4, 1,000,003 pixels of 3 and of 2
+   channels, 3 pixels and a view at an odd address, with nvcc's register
+   and spill report, timed on a 2048 x 32768 band (uniform and smooth)
+   with its bound and ``torch.bincount``'s time; (ii) the
    closure's 65,536-value grid against the fused kernel's index map over
    every byte pair, for each built-in kind and a registered one; (iii)
    ``analyze_mosaic_streamed`` over a 32768 x 32768 mosaic in 16 bands of
@@ -2004,8 +2007,17 @@ def flow_checks(torch, wrappers, timer, smi):
 # --- phase 4g: the streamed gigapixel mosaic and the single-image flows ----------
 
 JOINT_BAND = (2048, 32768)       # one band of the mosaic: 67,108,864 pixels, 201 MB
-JOINT_PAIRS = {1: ((0, 2),), 2: ((0, 2), (1, 2)), 3: ((0, 1), (0, 2), (1, 2))}
+JOINT_PAIRS = {1: ((0, 2),), 2: ((0, 2), (1, 2)), 3: ((0, 1), (0, 2), (1, 2)),
+               # four launch-row shapes of the cluster kernel: one row of 4
+               # pairs, two rows of 3 + 2 and 4 + 4; repeated and (a, a) pairs
+               4: ((0, 2), (1, 2), (0, 2), (2, 2)),
+               5: ((0, 2), (1, 2), (2, 0), (1, 1), (0, 2)),
+               8: ((0, 2), (1, 2), (0, 1), (2, 2), (0, 0), (1, 0), (0, 2), (2, 1))}
 JOINT_PAIRS_C2 = {1: ((0, 1),), 2: ((0, 1), (1, 0)), 3: ((1, 1), (0, 1), (1, 0))}
+JOINT_PAIRS_C1 = {1: ((0, 0),), 5: ((0, 0),) * 5}
+JOINT_PAIRS_C4 = {2: ((0, 3), (1, 3)), 4: ((0, 3), (1, 3), (2, 3), (3, 3)),
+                  5: ((3, 0), (0, 3), (1, 1), (2, 3), (0, 3)),
+                  8: ((0, 3), (1, 3), (2, 3), (3, 3), (0, 1), (1, 0), (2, 2), (0, 3))}
 JOINT_ODD_N = 1_000_003          # not a multiple of 4
 GIGA_SIDE = 32768                # BENCHMARKS.md config 7: a 1.07 GPix mosaic
 GIGA_BAND_ROWS = JOINT_BAND[0]   # 16 bands
@@ -2019,13 +2031,39 @@ NO_LAUNCHES = {"hist": 0, "fused": 0, "byte_hist": 0, "q24_tail": 0, "q24_onepas
                "jointhist": 0}
 
 
+def jointhist_bands(torch, band_shape=JOINT_BAND):
+    """The timed inputs of the jointhist kernel, (N, 3) uint8 on the card:
+    uniform bytes and the smooth field of one band."""
+    n = band_shape[0] * band_shape[1]
+    rng = np.random.default_rng((SEED, 70))
+    uniform = torch.as_tensor(rng.integers(0, 256, (n, 3), dtype=np.uint8), device="cuda")
+    smooth = torch.as_tensor(smooth_field((1,) + tuple(band_shape)).reshape(n, 3), device="cuda")
+    return {"uniform": uniform, "smooth": smooth}
+
+
+def ptxas_report(name):
+    """The lines of nvcc's -Xptxas -v report on the kernels of
+    ``csrc/<name>.cu`` (registers, shared memory, spills), from its build log."""
+    from rgnir_torch.kernels import _build
+
+    log_path = _build.library_path(name).with_suffix(".log")
+    if not log_path.exists():
+        return "no build log"
+    keep = [ln.split("ptxas info    :")[-1].strip() for ln in log_path.read_text().splitlines()
+            if "Used" in ln or "spill" in ln]
+    return "; ".join(keep)
+
+
 def jointhist_checks(torch, timer, rates, band_shape=JOINT_BAND):
-    """(i) The jointhist kernel against its plain version: uniform bytes
-    (1, 2 and 3 pairs), the smooth field, a constant band, odd lengths
-    with three and two channels, a view at an odd address; then timed on
-    the band (2048 x 32768) with the main path's two pairs, with its
-    bound and ``torch.bincount``'s time over the same keys. Returns the
-    record."""
+    """(i) The jointhist kernel against its plain version, exactly, each
+    total checked: uniform bytes (1-5 and 8 pairs, repeated and (a, a)
+    pairs among them), first channels all >= 128 and all < 128 (every
+    add to one slice of each pair), the smooth field, a constant band,
+    one quarter of the band at its offset (as the four-shard run launches
+    it), C = 1, 2 and 4, odd lengths, 3 pixels and a view at an odd
+    address; then timed on the band with the main path's two pairs, with
+    its bound and ``torch.bincount``'s time over the same keys. Returns
+    the record."""
     from rgnir_torch.kernels import jointhist as kj
 
     def check(what, flat, pairs):
@@ -2036,23 +2074,45 @@ def jointhist_checks(torch, timer, rates, band_shape=JOINT_BAND):
         require(int(out.sum()) == flat.shape[0] * len(pairs), f"jointhist {what} total")
 
     n = band_shape[0] * band_shape[1]
-    rng = np.random.default_rng((SEED, 70))
-    uniform = torch.as_tensor(rng.integers(0, 256, (n, 3), dtype=np.uint8), device="cuda")
-    smooth = torch.as_tensor(smooth_field((1,) + tuple(band_shape)).reshape(n, 3), device="cuda")
-    for p in (1, 2, 3):
+    rng = np.random.default_rng((SEED, 71))
+    bands = jointhist_bands(torch, band_shape)
+    uniform, smooth = bands["uniform"], bands["smooth"]
+    for p in (1, 2, 3, 4, 5, 8):
         check("uniform", uniform, JOINT_PAIRS[p])
+    for label, fix in (("first channels >= 128", lambda t: t | 128),
+                       ("first channels < 128", lambda t: t & 127)):
+        one_slice = uniform.clone()
+        one_slice[:, :2] = fix(one_slice[:, :2])
+        check(label, one_slice, JOINT_PAIRS[2])
+        check(label, one_slice, JOINT_PAIRS[8])
+        del one_slice
     check("smooth", smooth, JOINT_PAIRS[2])
     check("constant", torch.full((n, 3), 77, dtype=torch.uint8, device="cuda"), JOINT_PAIRS[2])
+    check("quarter band", uniform[n // 4:n // 2], JOINT_PAIRS[2])
+    c1 = torch.as_tensor(rng.integers(0, 256, (n, 1), dtype=np.uint8), device="cuda")
+    c4 = torch.as_tensor(rng.integers(0, 256, (n // 4, 4), dtype=np.uint8), device="cuda")
+    for pairs in JOINT_PAIRS_C1.values():
+        check("C=1", c1, pairs)
+        check("C=1 odd", c1[:min(JOINT_ODD_N, n - 1)], pairs)
+    for pairs in JOINT_PAIRS_C4.values():
+        check("C=4", c4, pairs)
+        check("C=4 odd", c4[:min(JOINT_ODD_N, n // 4 - 1)], pairs)
+    del c1, c4
     odd3 = torch.as_tensor(rng.integers(0, 256, (JOINT_ODD_N, 3), dtype=np.uint8), device="cuda")
     odd2 = torch.as_tensor(rng.integers(0, 256, (JOINT_ODD_N, 2), dtype=np.uint8), device="cuda")
     for p in (1, 2, 3):
         check("odd", odd3, JOINT_PAIRS[p])
         check("odd C=2", odd2, JOINT_PAIRS_C2[p])
+    check("odd 8 pairs", odd3, JOINT_PAIRS[8])
     check("tail only", odd3[:3], JOINT_PAIRS[3])
+    check("tail only, 8 pairs", odd3[:3], JOINT_PAIRS[8])
     check("odd address", uniform[1:JOINT_ODD_N + 1], JOINT_PAIRS[2])
-    log(f"kernels jointhist: equal to the plain version on uniform bytes ({n} pixels, 1-3 "
-        f"pairs), the smooth field, a constant band, {JOINT_ODD_N} pixels of 3 and 2 "
-        f"channels (1-3 pairs), 3 pixels and a view at an odd address")
+    log(f"kernels jointhist: equal to the plain version, totals checked, on uniform bytes "
+        f"({n} pixels, 1-5 and 8 pairs), first channels all >= 128 and all < 128 (2 and 8 "
+        f"pairs), the smooth field, a constant band, the band's second quarter, C=1 ({n} "
+        f"pixels and {min(JOINT_ODD_N, n - 1)}; 1 and 5 pairs), C=4 ({n // 4} and "
+        f"{min(JOINT_ODD_N, n // 4 - 1)}; 2, 4, 5 and 8 pairs), {JOINT_ODD_N} pixels of 3 and 2 channels (1-3 pairs; 8 of 3), 3 "
+        f"pixels (3 and 8 pairs) and a view at an odd address; build: {ptxas_report('jointhist')}")
 
     pairs = JOINT_PAIRS[2]
     bw, flops = rates
@@ -2060,7 +2120,7 @@ def jointhist_checks(torch, timer, rates, band_shape=JOINT_BAND):
     t_bytes, t_ops = nbytes / bw * 1e3, 8 * n * len(pairs) / flops * 1e3
     bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     times = {}
-    for label, band in (("uniform", uniform), ("smooth", smooth)):
+    for label, band in bands.items():
         acc = torch.zeros(len(pairs), 256, 256, dtype=torch.int32, device="cuda")
         keys = torch.cat([p * 65536 + ((band[:, a].long() << 8) | band[:, b].long())
                           for p, (a, b) in enumerate(pairs)])
@@ -2069,9 +2129,12 @@ def jointhist_checks(torch, timer, rates, band_shape=JOINT_BAND):
             timer.kernel(lambda: kj.joint_histograms_plain(band, pairs, torch.zeros_like(acc))),
             timer.kernel(lambda: torch.bincount(keys, minlength=len(pairs) * 65536)))
         del keys
-        log(f"kernel jointhist {label} band {band_shape[0]}x{band_shape[1]}x3, pairs {pairs}: "
-            f"{times[label][0]:.4f} ms, plain {times[label][1]:.4f} ms, torch.bincount "
-            f"{times[label][2]:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} ({nbytes} bytes)")
+        ms, plain_ms, library_ms = times[label]
+        log(f"kernel jointhist {label} band {band_shape[0]}x{band_shape[1]}x3, pairs {pairs} "
+            f"(a cluster of {2 * len(pairs)} blocks): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.bincount {library_ms:.4f} ms (kernel / bincount {ms / library_ms:.4f}), "
+            f"bound {bound[0]:.4f} ms by {bound[1]} ({nbytes} bytes; kernel / bound "
+            f"{ms / bound[0]:.2f})")
     ms, plain_ms, library_ms = times["uniform"]
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes, bound=bound,
                 max_abs_err=0.0)

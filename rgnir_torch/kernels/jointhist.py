@@ -5,8 +5,10 @@ Kernel: ``rgnir_torch/csrc/jointhist.cu``, in place of the streamed
 mosaic's band reduction ``rgnir_tpu/pipeline/gigapixel.py:87-191`` (a
 jnp one-hot contraction on the MXU, not a Pallas kernel). One launch
 counts every pair of an interleaved ``(N, C)`` band, read as it is with
-stride C. The plain version is one ``torch.bincount`` of the packed
-16-bit key per pair.
+stride C: each pair's bins are split over the shared memory of a
+thread-block cluster, and the band's tiles are multicast to every block
+of it. The plain version is one ``torch.bincount`` of the packed 16-bit
+key per pair.
 """
 
 from __future__ import annotations

@@ -640,8 +640,10 @@ def test_cuda_comparison_matches_cpu(cuda):
 
 @pytest.mark.cuda
 def test_cuda_jointhist_matches_plain(cuda):
-    """Phase 4g (i) at a band of 64 x 1024: uniform, smooth, constant,
-    odd lengths of 3 and 2 channels, 1-3 pairs, an odd address."""
+    """Phase 4g (i) at a band of 64 x 1024: uniform bytes with 1-5 and 8
+    pairs (repeated and (a, a) pairs), first channels all >= 128 and all
+    < 128, smooth, constant, a quarter band at its offset, C = 1 and 4,
+    odd lengths of 3 and 2 channels, 3 pixels, an odd address."""
     r = chip_smoke.jointhist_checks(torch, chip_smoke.Timer(torch),
                                     chip_smoke.card_rates(torch.cuda.get_device_name(0)),
                                     band_shape=(64, 1024))

@@ -48,6 +48,46 @@ def test_plain_kernel_version_matches_numpy(pairs, n):
     np.testing.assert_array_equal(plain(flat, pairs), numpy_joint(flat, pairs))
 
 
+# 1 and 4 channels, and 4-8 pairs: the kernel's launch rows (up to 4 pairs
+# a row, 5-8 in two) with repeated pairs and (a, a) pairs
+WIDE = [
+    (1, ((0, 0),)),
+    (1, ((0, 0),) * 5),
+    (4, ((0, 3), (1, 3), (2, 3), (3, 3))),
+    (4, ((3, 0), (0, 3), (1, 1), (2, 3), (0, 3))),
+    (4, ((0, 3), (1, 3), (2, 3), (3, 3), (0, 1), (1, 0), (2, 2), (0, 3))),
+    (3, ((0, 2), (1, 2), (0, 2), (2, 2))),
+    (3, ((0, 2), (1, 2), (2, 0), (1, 1), (0, 2))),
+    (3, ((0, 1), (1, 2), (2, 0), (0, 0), (1, 1), (2, 2))),
+    (3, ((0, 2), (1, 2), (0, 1), (2, 2), (0, 0), (1, 0), (0, 2))),
+    (3, ((0, 2), (1, 2), (0, 1), (2, 2), (0, 0), (1, 0), (0, 2), (2, 1))),
+]
+
+
+@pytest.mark.parametrize("c, pairs", WIDE)
+@pytest.mark.parametrize("n", [1, 15, 10007])
+def test_plain_kernel_version_wide_matches_jax_and_numpy(c, pairs, n):
+    """C = 1 and 4, 4-8 pairs: the plain version, the port's accumulator
+    and the JAX package's accumulator against numpy, each pair's total n."""
+    flat = np.random.default_rng(100 * c + n).integers(0, 256, (n, c), dtype=np.uint8)
+    want = numpy_joint(flat, pairs)
+    got = plain(flat, pairs)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(jointhist.accumulate(flat, pairs), want)
+    np.testing.assert_array_equal(jax_jointhist.accumulate(flat, pairs), want)
+    assert got.sum(axis=(1, 2)).tolist() == [n] * len(pairs)
+
+
+def test_plain_kernel_version_eight_pairs_accumulates_in_order():
+    """out[p] takes pair p's counts and keeps what it held, for all 8."""
+    rng = np.random.default_rng(17)
+    flat = rng.integers(0, 256, (4099, 4), dtype=np.uint8)
+    pairs = WIDE[4][1]
+    start = rng.integers(0, 1000, (8, 256, 256), dtype=np.int32)
+    out = kjh.joint_histograms(torch.from_numpy(flat), pairs, torch.from_numpy(start.copy()))
+    np.testing.assert_array_equal(out.numpy(), start + numpy_joint(flat, pairs).astype(np.int32))
+
+
 def test_plain_kernel_version_two_channels_and_accumulates():
     rng = np.random.default_rng(12)
     a = rng.integers(0, 256, (513, 2), dtype=np.uint8)

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Time design variants of the hist, fused and one-pass select kernels
-on one CUDA card.
+"""Time design variants of the hist, fused, one-pass select and
+jointhist kernels on one CUDA card.
 
-    python3 tools/kernel_variants.py [--only hist|fused|onepass] [--sass]
+    python3 tools/kernel_variants.py [--only hist|fused|onepass|jointhist] [--sass]
 
 Each variant is the shipped source (``rgnir_torch/csrc/hist.cu``,
-``fused.cu`` or ``onepass.cu``) with a few exact text substitutions: a
-constant (blocks per SM, threads, histogram copies) or the body of one
-helper (how a byte or a bin is counted). A substitution whose text is no
+``fused.cu``, ``onepass.cu`` or ``jointhist.cu``) with a few exact text
+substitutions: a constant (blocks per SM, threads, histogram copies,
+stages) or the body of one helper (how a byte or a bin is counted). A substitution whose text is no
 longer in the source raises, so the list cannot drift from the kernels
 silently. The variants build side by side with ``nvcc`` into ``build/kernel_variants/``, one
 process each, and run through the package's own wrappers, so a time here
@@ -18,7 +18,9 @@ Every hist and fused variant runs on two inputs at 8 x 1024^2 x 3:
 uniform random bytes and ``chip_smoke.py``'s smooth field (long runs of
 equal values, a saturated and a black region), in turns with the shipped
 kernel; the one-pass select's on the (a1) path's rows of those two and
-of a constant frame (``chip_smoke.onepass_inputs``). A variant that is a
+of a constant frame (``chip_smoke.onepass_inputs``); jointhist's on
+``chip_smoke.py``'s two 2048 x 32768 x 3 bands with the main path's two
+pairs (``--only jointhist``, not part of the default run). A variant that is a
 design candidate is held against the plain version first; one marked
 ``diagnostic`` leaves work out on purpose (no shared atomics, no render
 stores, no round-0 bin work) to show what the shipped kernel spends there,
@@ -363,6 +365,84 @@ ONEPASS_VARIANTS = {
 }
 
 
+# --- jointhist: the cluster kernel's knobs and its data paths --------------------
+
+JH_COUNT = "        count_unit<C>(w, sel, hx, bins_at);"
+JH_ADD = "    if (v < 0x8000u) add_local(bins + 4u * v);"
+JH_UNIT = """    const uint32_t v = (__byte_perm(x, y, sel + 0x11u * ((k * C) & 3)) & 0xffffu) ^ hx;
+    if (v < 0x8000u) add_local(bins + 4u * v);
+  }"""
+# a run of equal keys among a lane's 16 pixels: one add of its length
+JH_UNIT_RUNS = """    const uint32_t v = (__byte_perm(x, y, sel + 0x11u * ((k * C) & 3)) & 0xffffu) ^ hx;
+    if (v == cur) {
+      ++run;
+    } else {
+      if (cur < 0x8000u) asm volatile("red.shared.add.u32 [%0], %1;" ::"r"(bins + 4u * cur), "r"(run) : "memory");
+      cur = v;
+      run = 1;
+    }
+  }
+  if (cur < 0x8000u) asm volatile("red.shared.add.u32 [%0], %1;" ::"r"(bins + 4u * cur), "r"(run) : "memory");"""
+# (the count loop is not warp-uniform: the reductions take the active lanes)
+JH_WARP_UNIFORM = [(JH_ADD, """    const unsigned lanes = __activemask();
+    if (__reduce_min_sync(lanes, v) == __reduce_max_sync(lanes, v)) {
+      if ((threadIdx.x & 31) == __ffs(lanes) - 1 && v < 0x8000u)
+        asm volatile("red.shared.add.u32 [%0], %1;" ::"r"(bins + 4u * v), "r"(__popc(lanes)) : "memory");
+    } else if (v < 0x8000u) {
+      add_local(bins + 4u * v);
+    }""")]
+
+# a pair's bins split by the low bit of a (rows of b interleaved between
+# the two blocks) in place of the top bit
+JH_LOW_BIT = [
+    ("  const uint32_t hx = (rank & 1u) << 15;", "  const uint32_t hx = rank & 1u;"),
+    (JH_UNIT, """    const uint32_t key = __byte_perm(x, y, sel + 0x11u * ((k * C) & 3));
+    if (((key >> 8) & 1u) == hx) add_local(bins + 4u * (((key >> 1) & 0x7f00u) | (key & 0xffu)));
+  }"""),
+    ("""    const uint32_t v = (__byte_perm(x, 0, sel) & 0xffffu) ^ hx;
+    if (v < 0x8000u) add_local(bins_at + 4u * v);""",
+     """    const uint32_t key = __byte_perm(x, 0, sel);
+    if (((key >> 8) & 1u) == hx) add_local(bins_at + 4u * (((key >> 1) & 0x7f00u) | (key & 0xffu)));"""),
+    ("""    int* dst = out + static_cast<size_t>(blockIdx.y * (cs / 2) + pair) * (2 * kSlice) +
+               (rank & 1u) * kSlice;""",
+     """    int* dst = out + static_cast<size_t>(blockIdx.y * (cs / 2) + pair) * (2 * kSlice);"""),
+    ("      if (v) atomicAdd(dst + j, v);",
+     "      if (v) atomicAdd(dst + ((2 * (j >> 8) + (rank & 1u)) << 8) + (j & 255u), v);"),
+]
+
+
+def jh(const, value):
+    old = {"threads": "constexpr int kThreads = 512;",
+           "stages": "constexpr int kStages = 2;",
+           "stage": "constexpr int kStageBytes = 49152;",
+           "min": "constexpr long long kMinPixelsPerCluster = 1LL << 18;"}[const]
+    return (old, old.rsplit("=", 1)[0] + f"= {value};")
+
+
+JH_CLUSTERS = "static_cast<long long>(active / rows)"
+
+JOINTHIST_VARIANTS = {
+    "4 stages of 24 KB": (False, [jh("stages", 4), jh("stage", 24576)]),
+    "1024 threads": (False, [jh("threads", 1024)]),
+    "256 threads": (False, [jh("threads", 256)]),
+    "a lane's runs of equal keys added once": (False, [
+        (JH_UNIT, JH_UNIT_RUNS),
+        ("                                           uint32_t bins) {\n#pragma unroll",
+         "                                           uint32_t bins) {\n  uint32_t cur = 0xffffffffu, run = 0;\n#pragma unroll")]),
+    "a warp of one key added once (reductions)": (False, JH_WARP_UNIFORM),
+    "bins split by the low bit of a": (False, JH_LOW_BIT),
+    "bins split by the low bit of a, a second wave": (
+        False, JH_LOW_BIT + [(JH_CLUSTERS, "static_cast<long long>(2 * active / rows)")]),
+    "twice the resident clusters (a second wave)": (
+        False, [(JH_CLUSTERS, "static_cast<long long>(2 * active / rows)")]),
+    "no adds (multicast, waits, barriers and keys)": (
+        True, [(JH_ADD, "    if (v == sel + 0x10000u) add_local(bins + 4u * v);")]),
+    "no count (multicast, waits and barriers)": (
+        True, [(JH_COUNT, "        if ((w[0] ^ w[1] ^ w[2] ^ w[3]) == sel + 0x9e3779b9u) "
+                          "add_local(bins_at);")]),
+}
+
+
 # --- building and loading ---------------------------------------------------------
 
 def patched(source: str, subs) -> str:
@@ -477,9 +557,64 @@ def onepass_variants(torch, cs, out_dir) -> int:
     return 0
 
 
+def jointhist_variants(torch, cs, out_dir) -> int:
+    """The jointhist kernel's variants on chip_smoke.py's two timed bands
+    (uniform bytes and the smooth field, 2048 x 32768 x 3, the main
+    path's two pairs), in turns with the shipped kernel. A design
+    candidate is first held exactly against the plain version on both
+    bands and on 1,000,003 pixels with 8 pairs (two launch rows and the
+    tail)."""
+    from rgnir_torch.kernels import _build
+    from rgnir_torch.kernels import jointhist as kj
+
+    t0 = time.perf_counter()
+    _build.build(("jointhist",))
+    paths = build_variants("jointhist", JOINTHIST_VARIANTS, out_dir)
+    print(f"build: {time.perf_counter() - t0:.1f} s; shipped: {cs.ptxas_report('jointhist')}",
+          flush=True)
+    timer = cs.Timer(torch)
+    bands = cs.jointhist_bands(torch)
+    odd = bands["uniform"][:cs.JOINT_ODD_N]
+    pairs = cs.JOINT_PAIRS[2]
+    acc = torch.zeros(len(pairs), 256, 256, dtype=torch.int32, device="cuda")
+
+    def check(flat, prs):
+        out = torch.zeros(len(prs), 256, 256, dtype=torch.int32, device="cuda")
+        kj.joint_histograms(flat, prs, out)
+        cs.check_equal(torch, f"jointhist {tuple(flat.shape)} {prs}", out,
+                       kj.joint_histograms_plain(flat, prs, torch.zeros_like(out)))
+
+    shipped = _build.library("jointhist")
+    print(f"\njointhist: ms on uniform / smooth bands {tuple(bands['uniform'].shape)}, pairs "
+          f"{pairs}; shipped kernel timed before and after each variant", flush=True)
+    for name, (diagnostic, _) in JOINTHIST_VARIANTS.items():
+        lib = load(paths[name])
+        cells = []
+        try:
+            if not diagnostic:
+                _build._LIBS["jointhist"] = lib
+                for flat in bands.values():
+                    check(flat, pairs)
+                check(odd, cs.JOINT_PAIRS[8])
+            for label, band in bands.items():
+                fn = (lambda band=band: kj.joint_histograms(band, pairs, acc))
+                _build._LIBS["jointhist"] = shipped
+                before = timer.kernel(fn)
+                _build._LIBS["jointhist"] = lib
+                ms = timer.kernel(fn)
+                _build._LIBS["jointhist"] = shipped
+                after = timer.kernel(fn)
+                cells.append(f"{label} {ms:.4f} [shipped {before:.4f}, {after:.4f}]")
+        finally:
+            _build._LIBS["jointhist"] = shipped
+        tag = "diagnostic, unchecked" if diagnostic else "matches plain"
+        print(f"  {name} ({tag}): " + "; ".join(cells), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("hist", "fused", "onepass"), default=None)
+    ap.add_argument("--only", choices=("hist", "fused", "onepass", "jointhist"), default=None)
     ap.add_argument("--sass", action="store_true")
     args = ap.parse_args()
 
@@ -502,6 +637,8 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     if args.only == "onepass":
         return onepass_variants(torch, cs, out_dir)
+    if args.only == "jointhist":
+        return jointhist_variants(torch, cs, out_dir)
     t0 = time.perf_counter()
     _build.build(("hist", "fused"))
     todo = [k for k in ("hist", "fused") if args.only in (None, k)]
