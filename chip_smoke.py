@@ -113,7 +113,31 @@ Phases, each reported on its own line:
    ``export_processed_zip(figures=False)`` (fused 1, byte_hist 2,
    q24_tail 1) and the NDVI report's device step and statistics text,
    each against the same call on the CPU;
-5. the kernel self-test (``rgnir_torch.testing.selftest``), which must
+4h. full-resolution sharded change detection and the data plane
+   (``sharded_checks``): (i) ``change_detection_mosaic`` of
+   ``survey_frame(0)`` at its full 1536 x 2048 against the same moved by
+   a planted (9, -14) with a planted change, on a 1-D mesh of four
+   shards of ``cuda:0`` and on a (2, 2) mesh, integer, with
+   ``upsample_factor=10``, with ``local_tile=(256, 256)``, with a halo
+   of 8 that grows once and with ``grow_halo=False`` that saturates
+   loudly (a full-resolution proxy: the default strided one misses an
+   odd shift in both packages): the shift against the plant, each
+   result bit for bit the same call's on one shard of the card, within
+   the contract of four CPU shards, the median that of a sort on the
+   card, byte_hist launched 16 times a body run (``n_valid`` on 1-D,
+   ``live_rc`` on (2, 2)) and nothing else, its f32 rounds held to their
+   plain version there; (ii) the multi-process data plane at world size
+   1 over NCCL (a file store): phase 4b's mosaic through
+   ``padded_height``, ``process_row_band`` and ``mosaic_from_local_rows``
+   onto four shards, ``analyze_mosaic(impl="kernel", valid_rows=h)``
+   equal to phase 4b's, and the change pair through the plane equal to
+   (i); (iii) an 8192^2 orthomosaic pair made on the card (a smooth
+   field, a planted (21, -37)), on one and four shards, integer and
+   ``local_tile``: the plant exact, four shards equal to one, the wall
+   (median of 5), the device time by class (on one shard also its longest
+   device rows) and the peak device memory;
+5. the kernel self-test (``rgnir_torch.testing.selftest``, its section
+   5 the sharded change detection on ``local_mesh()``), which must
    pass;
 6. a ``kernels`` JSON line for the records.
 
@@ -1069,7 +1093,6 @@ def mosaic_paths(torch, timer, wrappers, smi):
                 f"mosaic {name} kernel body launches {launches} == {MOSAIC_LAUNCHES}")
 
     # the f32 sharded select over the same shards, prefix and rectangle
-    f32 = {}
     for name, layout in (("n_valid", "1-D, 4 shards"), ("live_rc", "(2, 2)")):
         got = runs[layout][0]
         for k in KINDS[:1]:
@@ -1090,7 +1113,6 @@ def mosaic_paths(torch, timer, wrappers, smi):
                 lambda: masked_median_sharded(shards, h * w, quantized=False, **kw))
             check_equal(torch, f"f32 sharded select {name} {k} vs q24", med.reshape(1),
                         got.stats[k].median.reshape(1))
-            f32[name] = launches
             log(f"f32 sharded select ({name}) {k}: equals the q24 median; launches {launches}")
 
     # wall time of the kernel body at MOSAIC_BIG^2, on 1 and on 4 shards
@@ -1108,9 +1130,7 @@ def mosaic_paths(torch, timer, wrappers, smi):
             "byte_hist_n_valid": launches_1d["byte_hist"],
             "byte_hist_live_rc": launches_22["byte_hist"],
             "q24_tail_n_valid": launches_1d["q24_tail"],
-            "q24_tail_live_rc": launches_22["q24_tail"],
-            "byte_hist_f32_n_valid": f32["n_valid"]["byte_hist"],
-            "byte_hist_f32_live_rc": f32["live_rc"]["byte_hist"]}
+            "q24_tail_live_rc": launches_22["q24_tail"]}
 
 
 # --- phase 4c: any number of kinds, and a frame above 2^29 pixels ------------
@@ -1780,6 +1800,22 @@ def device_profile(torch, fn):
     return sum(by.values()), by
 
 
+def top_device_ops(torch, fn, k=6):
+    """The ``k`` device rows of one call of ``fn`` with the most self
+    time (``torch.profiler``), as text."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  reverse=True)[:k]
+    return "; ".join(f"{name[:70]} x{n} {ms:.4f} ms" for ms, n, name in rows)
+
+
 def flow_timing(torch, timer, fn, smi):
     """The wall (median of FLOW_REPS after a warm-up, host clock, each
     call synchronised) and the device time of one call, as text."""
@@ -2402,6 +2438,330 @@ def gigapixel_checks(torch, wrappers, timer, rates, smi):
     return record, launches
 
 
+# --- phase 4h: full-resolution sharded change detection and the data plane -------
+
+SHARD_SHAPE = FLOW_SHAPE        # survey_frame(0) at its full 1536 x 2048, not downscaled
+SHARD_SHIFT = FLOW_SHIFT        # (9, -14), planted at full resolution
+SHARD_TILE = (256, 256)
+SHARD_HALO = 8                  # under the plant's 9 rows: grows once, or saturates
+# the default strided proxy misses an odd shift in both packages (ROADMAP
+# Queue 3); the full-resolution proxy recovers it exactly
+SHARD_STRIDE = 1
+ORTHO_SIDE = MOSAIC_BIG         # the orthomosaic pair's side
+ORTHO_SHIFT = (21, -37)
+# the f32 select's four rounds on each of four shards: the path's one kernel
+SHARD_LAUNCHES = {"hist": 0, "fused": 0, "byte_hist": 16, "q24_tail": 0, "q24_onepass": 0,
+                  "jointhist": 0}
+
+
+def shard_modes(tile, halo):
+    """(name, keyword arguments, runs of the shard body) of phase 4h."""
+    return (("integer", {}, 1),
+            ("upsample_factor 10", {"upsample_factor": 10}, 1),
+            (f"local_tile {tile}", {"local_tile": tile}, 1),
+            (f"halo {halo}, grown once", {"halo": halo}, 2),
+            (f"halo {halo}, grow_halo=False", {"halo": halo, "grow_halo": False}, 1))
+
+
+def sorted_median(torch, diff, h, w):
+    """The median of the valid differences by a sort on the card (the
+    even-n mean of the two middle values, as numpy's)."""
+    v = diff[:h, :w].reshape(-1).sort().values
+    n = v.numel()
+    return v[n // 2] if n % 2 else (v[n // 2 - 1] + v[n // 2]) * 0.5
+
+
+def whole_warp(res):
+    """Whether every pixel moved by a whole number: a whole shift, or a
+    constant whole field."""
+    s = (res.shift if res.field is None else res.field).cpu()
+    return bool((s == s.round()).all() and (res.field is None or (s == s[:1, :1]).all()))
+
+
+def same_change(torch, what, got, want, h, w, atol=0.0):
+    """Two sharded change results: the shift and field exactly; maps,
+    median, min and max bit for bit (``atol`` 0) or within ``atol``; mean
+    and variance within the contract."""
+    dev = got.diff.device
+    check_equal(torch, f"{what} shift", got.shift.cpu(), want.shift.cpu())
+    if got.field is not None:
+        check_equal(torch, f"{what} field", got.field.cpu(), want.field.cpu())
+    err = 0.0
+    for name in ("early_index", "late_index", "diff"):
+        g, r = getattr(got, name)[:h, :w], getattr(want, name)[:h, :w].to(dev)
+        if atol:
+            err = max(err, check_close(f"{what} {name}", g, r, atol))
+        else:
+            check_equal(torch, f"{what} {name}", g, r)
+    for name in ("median", "min", "max"):
+        g, r = getattr(got.stats, name).reshape(1), getattr(want.stats, name).reshape(1).to(dev)
+        if atol:
+            check_close(f"{what} {name}", g, r, atol)
+        else:
+            check_equal(torch, f"{what} {name}", g, r)
+    check_close(f"{what} mean", got.stats.mean, want.stats.mean.to(dev), MEAN_ATOL)
+    check_close(f"{what} var", got.stats.std ** 2, want.stats.std.to(dev) ** 2, VAR_ATOL)
+    return err
+
+
+def f32_rounds_vs_plain(torch, res, layout, h, w):
+    """byte_hist's f32 key at the path's shapes, against its plain version
+    exactly: the difference map's four blocks in the path's validity mode
+    (1-D: each block's valid prefix; (2, 2): each block's live
+    rectangle), the top round and the second round under the median's
+    top byte."""
+    from rgnir_torch.kernels.select import byte_hist, byte_hist_plain
+    from rgnir_torch.ops.select import ordered_u32_from_f32
+
+    diff = res.diff
+    top = ordered_u32_from_f32(res.stats.median.reshape(1)) & 0xFF000000
+    if layout == "1-D":
+        bh = diff.shape[0] // 4
+        blocks = [(diff[r * bh:(r + 1) * bh].reshape(1, -1),
+                   dict(n_valid=min(max(h - r * bh, 0), bh) * w)) for r in range(4)]
+    else:
+        bh, bw = diff.shape[0] // 2, diff.shape[1] // 2
+        blocks = [(diff[r * bh:(r + 1) * bh, c * bw:(c + 1) * bw].reshape(1, -1),
+                   dict(live_rc=(min(max(h - r * bh, 0), bh), min(max(w - c * bw, 0), bw)),
+                        row_major_cols=bw)) for r in range(2) for c in range(2)]
+    for rows, val in blocks:
+        rows = rows.contiguous()
+        for shift, prefix in ((24, torch.zeros_like(top)), (16, top)):
+            check_equal(torch, f"byte_hist f32 {layout} shift {shift}",
+                        byte_hist(rows, prefix, shift, "f32", **val),
+                        byte_hist_plain(rows, prefix, shift, "f32", **val))
+
+
+def sharded_change_checks(torch, wrappers, early, late, planted, tile=SHARD_TILE,
+                          halo=SHARD_HALO, timer=None, smi=""):
+    """``change_detection_mosaic`` of a full-resolution pair on the card,
+    on a 1-D mesh of four shards of ``cuda:0`` and on a (2, 2) mesh, in
+    each of ``shard_modes``: the shift against the plant (exact; within
+    0.1 upsampled; the clamp and ``shift_raw`` when saturated), the
+    result bit for bit that of the same call on one shard of the card
+    (with the tile grid the four shards used, tiles shrinking to divide
+    a shard; but a saturated (2, 2) run, whose column clamp one shard
+    has not),
+    within the contract of the same call on four CPU shards, the median
+    that of a sort, byte_hist launched 16 times a body run and nothing
+    else. Returns ``(lines, {"n_valid" | "live_rc": the integer run's
+    launches}, the 1-D integer result)``."""
+    from rgnir_torch.parallel import change_detection_mosaic, make_mesh
+    from rgnir_torch.parallel.change import _pick_tile_rows
+
+    cuda = torch.device("cuda", 0)
+    h, w = early.shape[:2]
+    e_dev = torch.as_tensor(early, device=cuda)
+    l_dev = torch.as_tensor(late, device=cuda)
+    lines, launches, ref = [], {}, None
+    for layout, shape, axes in (("1-D", (4,), ("d",)), ("(2, 2)", (2, 2), ("dr", "dc"))):
+        mesh = make_mesh(shape, axes, devices=[cuda] * 4)
+        one = make_mesh((1,) * len(shape), axes, devices=[cuda])
+        cpu = make_mesh(shape, axes, devices=["cpu"] * 4)
+        for mode, kw, runs in shard_modes(tile, halo):
+            kw = dict(kw, proxy_stride=SHARD_STRIDE)
+            what = f"sharded change {layout} {mode}"
+
+            def call(m=mesh, a=e_dev, b=l_dev):
+                return change_detection_mosaic(a, b, "NDVI", mesh=m, **kw)
+
+            got, counts = count_launches(torch, wrappers, ("byte_hist",), what, call)
+            want_counts = dict(SHARD_LAUNCHES, byte_hist=16 * runs)
+            require(counts == want_counts, f"{what}: launches {counts} == {want_counts}")
+            shift = got.shift.cpu().numpy()
+            raw = got.shift_raw.cpu().numpy()
+            saturated = kw.get("grow_halo") is False
+            require(bool(got.shift_saturated) == saturated, f"{what}: saturation flag")
+            if saturated:
+                bound = halo - 1
+                clamp = [min(planted[0], bound), planted[1] if layout == "1-D"
+                         else max(planted[1], -bound)]
+                require(np.array_equal(raw, planted) and np.array_equal(shift, clamp),
+                        f"{what}: shift {shift} (raw {raw}), clamp {clamp}")
+            else:
+                tol = 0.1 + 1e-6 if "upsample_factor" in kw else 0.0
+                require(np.abs(shift - np.asarray(planted)).max() <= tol,
+                        f"{what}: shift {shift}, planted {planted}")
+            if got.field is not None:
+                require(not bool(got.field_saturated), f"{what}: field saturated")
+            require(tuple(got.diff.shape) == (-(-h // shape[0]) * shape[0],
+                                              -(-w // (shape + (1,))[1]) * (shape + (1,))[1])
+                    and bool(torch.isfinite(got.diff).all()), f"{what}: diff shape or values")
+            check_equal(torch, f"{what} median vs a sort", got.stats.median.reshape(1),
+                        sorted_median(torch, got.diff, h, w).reshape(1))
+            if not (saturated and layout != "1-D"):
+                # tiles shrink to divide a shard: one shard gets the grid four used
+                one_kw = dict(kw)
+                if "local_tile" in kw:
+                    bh, bw = got.diff.shape[0] // shape[0], got.diff.shape[1] // (shape + (1,))[1]
+                    one_kw["local_tile"] = (_pick_tile_rows(bh, tile[0]),
+                                            tile[1] if layout == "1-D"
+                                            else _pick_tile_rows(bw, tile[1]))
+                same_change(torch, f"{what} vs one shard", got,
+                            change_detection_mosaic(e_dev, l_dev, "NDVI", mesh=one, **one_kw),
+                            h, w)
+            atol = IDX_ATOL if whole_warp(got) else SUBPIXEL_ATOL
+            err = same_change(torch, f"{what} vs CPU shards", got,
+                              call(m=cpu, a=early, b=late), h, w, atol=atol)
+            if mode == "integer":
+                launches["n_valid" if layout == "1-D" else "live_rc"] = counts["byte_hist"]
+                f32_rounds_vs_plain(torch, got, layout, h, w)
+                if layout == "1-D":
+                    ref = got
+            timing = flow_timing(torch, timer, call, smi) if timer and mode == "integer" else ""
+            lines.append(
+                f"sharded change {h}x{w} {layout} ({mode}): shift {shift.tolist()} (raw "
+                f"{raw.tolist()}, planted {list(planted)}), saturated {saturated}; equal to "
+                f"one shard{' (not compared: its column clamp)' if saturated and layout != '1-D' else ''}"
+                f", within {err:.3g} of four CPU shards (bound {atol}); median "
+                f"{float(got.stats.median):.6g} equals a sort; launches {counts}; {timing}")
+    return lines, launches, ref
+
+
+def ortho_pair(torch, side, shift, seed=SEED):
+    """An orthomosaic pair made on the card from ``seed``: per channel a
+    low-frequency surface plus unit noise (as ``smooth_field``), and the
+    same moved so that ``shift`` aligns it back, reflect borders, integer
+    noise in [-2, 2]."""
+    cuda = torch.device("cuda", 0)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    y = torch.linspace(0.0, 1.0, side, device=cuda)[:, None]
+    x = torch.linspace(0.0, 1.0, side, device=cuda)[None, :]
+    early = torch.empty((side, side, 3), dtype=torch.uint8, device=cuda)
+    for c in range(3):
+        fy, fx, py, px = (torch.rand(4, generator=g, device=cuda) * 2.0 + 0.5).tolist()
+        surface = 140.0 + 130.0 * torch.sin(2 * np.pi * (fy * y + py)) * torch.cos(
+            2 * np.pi * (fx * x + px))
+        surface += torch.randn((side, side), generator=g, device=cuda)
+        early[..., c] = surface.clamp(0, 255).to(torch.uint8)
+
+    def reflect(i):
+        i = torch.where(i < 0, -i - 1, i)
+        return torch.where(i >= side, 2 * side - 1 - i, i)
+
+    idx = torch.arange(side, device=cuda)
+    late = early.index_select(0, reflect(idx + shift[0])).index_select(1, reflect(idx + shift[1]))
+    noise = torch.randint(-2, 3, late.shape, generator=g, device=cuda, dtype=torch.int16)
+    return early, (late.to(torch.int16) + noise).clamp(0, 255).to(torch.uint8)
+
+
+def ortho_checks(torch, wrappers, timer, smi, side=ORTHO_SIDE, shift=ORTHO_SHIFT):
+    """The orthomosaic pair at ``side``^2 on one and on four shards of the
+    card, integer and ``local_tile``: the plant exact, the two shard
+    counts equal, byte_hist 4 a shard and nothing else, the wall (median
+    of 5), the device time by class and the peak device memory."""
+    from rgnir_torch.parallel import change_detection_mosaic, make_mesh
+
+    cuda = torch.device("cuda", 0)
+    early, late = ortho_pair(torch, side, shift)
+    lines = []
+    for mode, kw in (("integer", {}), (f"local_tile {SHARD_TILE}", {"local_tile": SHARD_TILE})):
+        results = {}
+        for n in (1, 4):
+            mesh = make_mesh((n,), ("d",), devices=[cuda] * n)
+
+            def call():
+                return change_detection_mosaic(early, late, "NDVI", mesh=mesh,
+                                               proxy_stride=SHARD_STRIDE, **kw)
+
+            what = f"orthomosaic {side}^2 {mode}, {n} shard(s)"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            res, counts = count_launches(torch, wrappers, ("byte_hist",), what, call)
+            peak = torch.cuda.max_memory_allocated() - base
+            require(counts == dict(SHARD_LAUNCHES, byte_hist=4 * n), f"{what}: launches {counts}")
+            require(np.array_equal(res.shift.cpu().numpy(), shift),
+                    f"{what}: shift {res.shift.tolist()}, planted {list(shift)}")
+            results[n] = res
+            lines.append(f"{what}: shift {res.shift.tolist()} exact; launches {counts}; peak "
+                         f"device memory {peak / 2 ** 30:.3f} GiB above the pair's; "
+                         f"{flow_timing(torch, timer, call, smi)}")
+            if n == 1:
+                lines.append(f"{what}: the longest device rows: {top_device_ops(torch, call)}")
+        same_change(torch, f"orthomosaic {mode} 4 shards vs 1", results[4], results[1], side,
+                    side)
+        lines.append(f"orthomosaic {side}^2 {mode}: four shards equal one bit for bit")
+        del results
+    return lines
+
+
+def data_plane_checks(torch, wrappers, early, late, ref, smi):
+    """The multi-process data plane at world size 1: ``initialize`` over a
+    file store (NCCL for CUDA tensors, one all-reduce on the card), then
+    ``padded_height``, ``process_row_band`` and ``mosaic_from_local_rows``
+    of phase 4b's mosaic onto four shards of ``cuda:0``, whose
+    ``analyze_mosaic(impl="kernel", valid_rows=h)`` is phase 4b's 1-D
+    result, and the change pair through the same plane, whose result is
+    ``ref`` (the 1-D integer run). The group is destroyed at the end."""
+    import torch.distributed as dist
+
+    from rgnir_torch.parallel import (analyze_mosaic, change_detection_mosaic,
+                                      initialize_distributed, make_mesh,
+                                      mosaic_from_local_rows, padded_height, process_row_band)
+
+    cuda = torch.device("cuda", 0)
+    store = Path(__file__).resolve().parent / "build" / f"dist_store_{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    initialize_distributed(f"file://{store}", 1, 0)
+    try:
+        one = torch.ones(1, device=cuda)
+        dist.all_reduce(one)
+        backend = str(dist.get_backend())
+        require("nccl" in backend and float(one) == 1.0, f"process group backend {backend}")
+        mesh = make_mesh((4,), ("d",), devices=[cuda] * 4)
+        h, w = MOSAIC_SHAPE
+        mosaic = np.random.default_rng(SEED + 2).integers(0, 256, (h, w, 3), dtype=np.uint8)
+        hp = padded_height(h, mesh)
+        lo, hi = process_row_band(hp, mesh)
+        require((hp, lo, hi) == (ceil_to(h, 4), 0, ceil_to(h, 4)), f"band {(hp, lo, hi)}")
+        padded = np.zeros((hp, w, 3), np.uint8)
+        padded[:h] = mosaic
+        sharded = mosaic_from_local_rows(padded[lo:hi], (hp, w, 3), mesh)
+        got, counts = count_launches(
+            torch, wrappers, MOSAIC_PATH, "data plane analyze_mosaic",
+            lambda: analyze_mosaic(sharded, kinds=KINDS, mesh=mesh, with_renders=True,
+                                   impl="kernel", valid_rows=h))
+        require(counts == MOSAIC_LAUNCHES, f"data plane launches {counts}")
+        want = analyze_mosaic(torch.as_tensor(mosaic, device=cuda), kinds=KINDS, mesh=mesh,
+                              with_renders=True, impl="kernel")
+        check_mosaic(torch, "data plane vs phase 4b", got, want, KINDS, h, w)
+        lo, hi = process_row_band(early.shape[0], mesh)
+        se = mosaic_from_local_rows(early[lo:hi], early.shape, mesh)
+        sl = mosaic_from_local_rows(late[lo:hi], late.shape, mesh)
+        res, ccounts = count_launches(
+            torch, wrappers, ("byte_hist",), "data plane change detection",
+            lambda: change_detection_mosaic(se, sl, "NDVI", mesh=mesh, proxy_stride=SHARD_STRIDE))
+        same_change(torch, "data plane change detection vs the 1-D run", res, ref,
+                    *early.shape[:2])
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    return (f"data plane, world size 1 over {backend}: {MOSAIC_SHAPE} padded to {hp} rows, "
+            f"band [{0}, {hp}) onto four shards of cuda:0; analyze_mosaic(kernel, valid_rows) "
+            f"equals phase 4b's (launches {counts}); the change pair through the plane equals "
+            f"the 1-D run (launches {ccounts}); group destroyed [{smi}]")
+
+
+def sharded_checks(torch, wrappers, timer, smi):
+    """Phase 4h. Returns the f32 byte_hist's launches on the path, by
+    validity mode."""
+    t_phase = time.perf_counter()
+    early = survey_frame(0, SHARD_SHAPE)
+    late = displaced(early, *SHARD_SHIFT, seed=100, change=True)
+    lines, launches, ref = sharded_change_checks(torch, wrappers, early, late, SHARD_SHIFT,
+                                                 timer=timer, smi=smi)
+    for line in lines:
+        log(line)
+    log(data_plane_checks(torch, wrappers, early, late, ref, smi))
+    del ref
+    for line in ortho_checks(torch, wrappers, timer, smi):
+        log(line)
+    log(f"phase 4h took {time.perf_counter() - t_phase:.1f} s")
+    return {"byte_hist_f32_n_valid": launches["n_valid"],
+            "byte_hist_f32_live_rc": launches["live_rc"]}
+
+
 KERNEL_SOURCES = {
     "hist": ("rgnir_torch/csrc/hist.cu", "rgnir_tpu/kernels/hist.py:39"),
     "fused": ("rgnir_torch/csrc/fused.cu", "rgnir_tpu/kernels/fused.py:78"),
@@ -2502,6 +2862,7 @@ def main() -> int:
     flow_checks(torch, WRAPPERS, timer, smi)
     records["jointhist"], giga_launches = gigapixel_checks(torch, WRAPPERS, timer, rates, smi)
     path_launches["jointhist"] = giga_launches["jointhist"]
+    path_launches.update(sharded_checks(torch, WRAPPERS, timer, smi))
 
     # 5. the kernel self-test
     from rgnir_torch.testing import selftest

@@ -36,7 +36,8 @@ from rgnir_torch.ops.indices import band_indices, index_from_bands
 from rgnir_torch.ops.select import masked_median
 from rgnir_torch.ops.stats import IndexStats, histogram_fixed_bins
 from rgnir_torch.ops.wb import apply_white_balance_planar, wb_bounds_from_histogram
-from rgnir_torch.parallel.mesh import Mesh, local_mesh, pmax, pmin, psum
+from rgnir_torch.parallel.mesh import Mesh, local_mesh, pmax, pmin, psum, spanning
+from rgnir_torch.parallel.multihost import ShardedMosaic
 
 
 @dataclasses.dataclass
@@ -58,9 +59,10 @@ def _ceil_to(x: int, m: int) -> int:
 
 
 @dataclasses.dataclass
-class _Layout:
+class Layout:
     """The cut of a mosaic into ``dr x dc`` blocks of ``(bh, bw)``, in
-    row-major order; ``h x w`` is the valid top-left part."""
+    row-major order, of which this process holds ``shards`` (every block
+    but under a process group); ``h x w`` is the valid top-left part."""
 
     dr: int
     dc: int
@@ -68,7 +70,19 @@ class _Layout:
     bw: int
     h: int
     w: int
+    shards: List[int]
     devices: List[torch.device]
+
+    @classmethod
+    def of(cls, mesh: Mesh, bh: int, bw: int, h: int, w: int) -> "Layout":
+        dr, dc = (mesh.devices.shape + (1,))[:2]
+        if mesh.shards_per_process % dc:
+            raise ValueError(f"each process must hold whole rows of blocks: "
+                             f"{mesh.shards_per_process} shards a process, {dc} a row")
+        flat = mesh.flat()
+        shards = mesh.local_shards()
+        return cls(dr=dr, dc=dc, bh=bh, bw=bw, h=h, w=w, shards=shards,
+                   devices=[flat[i] for i in shards])
 
     @property
     def n_valid(self) -> int:
@@ -78,19 +92,31 @@ class _Layout:
     def pad_total(self) -> int:
         return self.dr * self.bh * self.dc * self.bw - self.n_valid
 
-    def live(self) -> List[Tuple[int, int]]:
-        """Each block's valid rectangle, ``(rows_live, cols_live)``."""
-        return [(min(max(self.h - r * self.bh, 0), self.bh),
-                 min(max(self.w - c * self.bw, 0), self.bw))
-                for r in range(self.dr) for c in range(self.dc)]
+    def origin(self, shard: int) -> Tuple[int, int]:
+        """The global (row, column) of a block's first pixel."""
+        r, c = divmod(shard, self.dc)
+        return r * self.bh, c * self.bw
 
-    def tiles(self, mosaic: torch.Tensor) -> List[torch.Tensor]:
-        """Each block, contiguous on its device; what lies past the
-        mosaic is zeros."""
+    def live(self) -> List[Tuple[int, int]]:
+        """Each held block's valid rectangle, ``(rows_live, cols_live)``."""
+        return [(min(max(self.h - r0, 0), self.bh), min(max(self.w - c0, 0), self.bw))
+                for r0, c0 in map(self.origin, self.shards)]
+
+    def tiles(self, mosaic) -> List[torch.Tensor]:
+        """Each held block, contiguous on its device; what lies past the
+        mosaic is zeros. A :class:`ShardedMosaic` cut as this layout
+        cuts gives its blocks as they are."""
+        if isinstance(mosaic, ShardedMosaic):
+            grid = mosaic.mesh.devices.shape + (1,)
+            if (grid[:2] == (self.dr, self.dc) and mosaic.shape[:2] == (self.dr * self.bh,
+                                                                         self.dc * self.bw)
+                    and mosaic.mesh.local_shards() == self.shards):
+                return [s.to(d) for s, d in zip(mosaic.shards, self.devices)]
+            mosaic = mosaic.full()  # another cut: one process holds it whole
         out = []
-        for i, dev in enumerate(self.devices):
-            r, c = divmod(i, self.dc)
-            src = mosaic[r * self.bh:(r + 1) * self.bh, c * self.bw:(c + 1) * self.bw]
+        for i, dev in zip(self.shards, self.devices):
+            r0, c0 = self.origin(i)
+            src = mosaic[r0:r0 + self.bh, c0:c0 + self.bw]
             if src.shape[:2] == (self.bh, self.bw):
                 out.append(src.to(dev).contiguous())
                 continue
@@ -100,17 +126,20 @@ class _Layout:
         return out
 
     def assemble(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The global padded tensor of per-block outputs, on the first
-        device."""
+        """The padded tensor of the held blocks' outputs on the first
+        device: the whole mosaic, or under a process group this
+        process's band of block rows."""
         dev = self.devices[0]
         if len(parts) == 1:
             return parts[0]
-        rows = [torch.cat([p.to(dev) for p in parts[r * self.dc:(r + 1) * self.dc]], dim=1)
-                if self.dc > 1 else parts[r].to(dev) for r in range(self.dr)]
+        rows = [torch.cat([p.to(dev) for p in parts[k:k + self.dc]], dim=1)
+                if self.dc > 1 else parts[k].to(dev) for k in range(0, len(parts), self.dc)]
         return torch.cat(rows, dim=0)
 
 
-def _as_mosaic(mosaic) -> torch.Tensor:
+def _as_mosaic(mosaic):
+    if isinstance(mosaic, ShardedMosaic):
+        return mosaic
     if isinstance(mosaic, np.ndarray):
         mosaic = torch.from_numpy(np.ascontiguousarray(mosaic))
     if mosaic.dtype != torch.uint8 or mosaic.dim() != 3 or mosaic.shape[-1] != 3:
@@ -129,8 +158,9 @@ def analyze_mosaic(
     impl: str = "jnp",
     valid_rows: Optional[int] = None,
 ) -> MosaicResult:
-    """Analyze one large ``(H, W, 3)`` uint8 mosaic (a tensor or a numpy
-    array) sharded over a mesh.
+    """Analyze one large ``(H, W, 3)`` uint8 mosaic (a tensor, a numpy
+    array or the :class:`ShardedMosaic` of
+    ``multihost.mosaic_from_local_rows``) sharded over a mesh.
 
     Rows (and, on a 2-D mesh such as axes ``("dr", "dc")``, columns) are
     padded to a multiple of the mesh and cut into blocks, one per mesh
@@ -141,6 +171,10 @@ def analyze_mosaic(
 
     ``valid_rows``: the true height when the caller pre-padded the rows
     with zeros; the pad rows are masked like the internal padding.
+
+    On a mesh over a process group each rank runs the body over its own
+    blocks, and the statistics are reduced across the ranks; the pixel
+    outputs then hold this rank's band of block rows.
 
     ``impl``: ``"jnp"`` (plain PyTorch ops, the name kept from the JAX
     package) or ``"kernel"`` (the hist, fused, byte_hist and q24_tail
@@ -162,14 +196,14 @@ def analyze_mosaic(
     if not 0 < h <= h_in:
         raise ValueError(f"valid_rows {valid_rows} is outside (0, {h_in}]")
     dr, dc = (mesh.devices.shape + (1,))[:2]
-    layout = _Layout(dr=dr, dc=dc, bh=_ceil_to(h_in, dr) // dr, bw=_ceil_to(w, dc) // dc,
-                     h=h, w=w, devices=mesh.flat())
+    layout = Layout.of(mesh, bh=_ceil_to(h_in, dr) // dr, bw=_ceil_to(w, dc) // dc, h=h, w=w)
     tiles = layout.tiles(mosaic)
-    if impl == "jnp":
-        return _analyze_jnp(tiles, layout, kinds, wb_cfg, idx_cfg, with_renders)
-    if len(mesh.axis_names) == 1:
-        return _analyze_kernel_1d(tiles, layout, kinds, wb_cfg, with_renders)
-    return _analyze_kernel_2d(tiles, layout, kinds, wb_cfg, with_renders)
+    with spanning(mesh):
+        if impl == "jnp":
+            return _analyze_jnp(tiles, layout, kinds, wb_cfg, idx_cfg, with_renders)
+        if len(mesh.axis_names) == 1:
+            return _analyze_kernel_1d(tiles, layout, kinds, wb_cfg, with_renders)
+        return _analyze_kernel_2d(tiles, layout, kinds, wb_cfg, with_renders)
 
 
 def _scalar_stats(mean, median, var, mn, mx, above, n_valid, hist) -> IndexStats:
@@ -185,7 +219,7 @@ def _scalar_stats(mean, median, var, mn, mx, above, n_valid, hist) -> IndexStats
     )
 
 
-def _analyze_jnp(tiles, layout: _Layout, kinds, wb_cfg, idx_cfg, with_renders) -> MosaicResult:
+def _analyze_jnp(tiles, layout: Layout, kinds, wb_cfg, idx_cfg, with_renders) -> MosaicResult:
     """The plain body, the JAX package's two jnp bodies in one: a 1-D
     mesh is one column of blocks whose valid columns are all of them."""
     n_valid = layout.n_valid
@@ -238,7 +272,7 @@ def _fused_shards(tiles, lo, hi, kinds, with_renders, n_live=None):
             for i, t in enumerate(tiles)]
 
 
-def _pixel_outputs(outs, layout: _Layout, kinds, with_renders):
+def _pixel_outputs(outs, layout: Layout, kinds, with_renders):
     indices = {kind.value: layout.assemble([o.idx[k, 0] for o in outs])
                for k, kind in enumerate(kinds)}
     renders = ({kind.value: layout.assemble([o.rgb[k, 0] for o in outs])
@@ -273,7 +307,7 @@ def _kernel_stats(outs, g, kinds, n_valid, mn, mx, **validity) -> MosaicStats:
             for k, kind in enumerate(kinds)}
 
 
-def _analyze_kernel_1d(tiles, layout: _Layout, kinds, wb_cfg, with_renders) -> MosaicResult:
+def _analyze_kernel_1d(tiles, layout: Layout, kinds, wb_cfg, with_renders) -> MosaicResult:
     """Row blocks through the kernels, the padding masked positionally:
     a shard's valid pixels are its first ``rows_live * W`` (hist's and
     fused's ``n_valid``, byte_hist's and q24_tail's prefix)."""
@@ -288,7 +322,7 @@ def _analyze_kernel_1d(tiles, layout: _Layout, kinds, wb_cfg, with_renders) -> M
     return MosaicResult(wb=wb, indices=indices, renders=renders, stats=stats)
 
 
-def _analyze_kernel_2d(tiles, layout: _Layout, kinds, wb_cfg, with_renders) -> MosaicResult:
+def _analyze_kernel_2d(tiles, layout: Layout, kinds, wb_cfg, with_renders) -> MosaicResult:
     """Row-and-column blocks through the kernels unmasked: the padding is
     zero bytes, which white-balance to 0 (every lower bound is >= 0) and
     index to +0.0, so its contribution is known exactly and subtracted:

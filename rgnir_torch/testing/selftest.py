@@ -7,10 +7,10 @@ Run it on a new card, after an upgrade of the CUDA stack, or after any
 kernel edit. It builds the kernels (at first use), prints one JSON line
 per check and a final ``{"result": "PASS" | "FAIL", "failures": [...]}``,
 and exits 1 on any failure. It runs on CUDA; ``main(device="cpu")`` runs
-the same checks through the plain versions. Counterpart: sections 1-4 of
+the same checks through the plain versions, the sharded change detection
+of section 5 on four CPU shards. Counterpart: sections 1-5 of
 ``rgnir_tpu/testing/selftest.py``; its render-mode checks have no
-counterpart (the port has one render path), and its section 5 (sharded
-change detection) waits for ``parallel/change.py``.
+counterpart (the port has one render path).
 """
 
 from __future__ import annotations
@@ -154,6 +154,27 @@ def main(device: Optional[Union[str, torch.device]] = None) -> int:
         check(name, same(s4.median, s1.median) and same(s4.histogram, s1.histogram)
               and same(s4.min, s1.min) and same(s4.max, s1.max)
               and near(s4.mean, s1.mean, 1e-6) and near(s4.std, s1.std, 1e-6))
+
+    # 5. sharded change detection (the f32 sharded select in the shard
+    # body): a rolled pair's shift, then the non-rigid refinement, whose
+    # per-tile batched FFTs, gathered field and per-pixel field warp must
+    # lock on a near-constant field equal to -roll
+    from rgnir_torch.parallel import change_detection_mosaic, local_mesh
+
+    cmesh = (local_mesh() if dev.type == "cuda"
+             else make_mesh((4,), ("d",), devices=[dev] * 4))
+    early = mosaic.cpu().numpy()
+    late = np.roll(early, (4, -3), axis=(0, 1))
+    ch = change_detection_mosaic(early, late, "NDVI", mesh=cmesh, halo=16, proxy_stride=1)
+    dy, dx = (float(s) for s in ch.shift.cpu())
+    check("sharded_change_shift", (dy, dx) == (-4.0, 3.0), f"shift=({dy},{dx})")
+    chf = change_detection_mosaic(early, late, "NDVI", mesh=cmesh, halo=16, proxy_stride=1,
+                                  local_tile=(64, 64))
+    fld = chf.field.cpu().numpy()
+    check("sharded_change_local_field",
+          fld.shape[-1] == 2 and not bool(chf.field_saturated)
+          and np.abs(fld[1:-1] - np.float32([-4.0, 3.0])).max() <= 1.0,
+          f"field_range=({fld.min()},{fld.max()})")
 
     print(json.dumps({"result": "PASS" if not failures else "FAIL",
                       "failures": failures}), flush=True)

@@ -705,3 +705,20 @@ def test_cuda_change_series_one_frame_is_empty(cuda):
     diffs, shifts, stats = change_series_maps(stack, "NDVI")
     assert diffs.shape == (0, 48, 64) and shifts.shape == (0, 2)
     assert diffs.device.type == "cuda" and all(v.shape == (0,) for v in stats.values())
+
+
+@pytest.mark.cuda
+def test_cuda_change_detection_mosaic_matches_plain(cuda):
+    """Full-resolution sharded change detection on four shards of the
+    card (1-D and (2, 2)), integer, upsampled, with a tile field, grown
+    and saturated: equal to one shard of the card, within the contract
+    of four CPU shards, byte_hist launched 16 times a body run (32 after
+    one halo growth) and nothing else, its f32 rounds equal to their
+    plain version in both validity modes (chip_smoke's phase 4h at 512 x
+    768)."""
+    early = chip_smoke.survey_frame(0, (512, 768))
+    late = chip_smoke.displaced(early, 9, -14, seed=100, change=True)
+    _, launches, ref = chip_smoke.sharded_change_checks(torch, tk.WRAPPERS, early, late,
+                                                        (9, -14), tile=(128, 128), halo=8)
+    assert launches == {"n_valid": 16, "live_rc": 16}
+    assert ref.shift.tolist() == [9.0, -14.0]

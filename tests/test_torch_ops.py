@@ -298,7 +298,7 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'rgnir_tpu', 'matplotlib', 'PIL')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 59, names\n"
+        "assert len(names) >= 62, names\n"
         "for name in ('native.ring', 'native._build', 'utils.logging', 'utils.profiling',\n"
         "             'pipeline.streaming', 'pipeline.batch', 'io.decode', 'io.cache',\n"
         "             'io.loader', 'io.writer', 'native.imgio', 'utils.manifest',\n"
@@ -306,7 +306,8 @@ def test_port_imports_no_jax():
         "             'register.local', 'pipeline.change', 'pipeline.timeseries',\n"
         "             'pipeline.compare', 'pipeline.gigapixel', 'pipeline.single',\n"
         "             'pipeline.export', 'pipeline.rgn', 'native.jointhist',\n"
-        "             'kernels.jointhist', 'tiling', 'tiling.tiles'):\n"
+        "             'kernels.jointhist', 'tiling', 'tiling.tiles', 'parallel.halo',\n"
+        "             'parallel.change', 'parallel.multihost'):\n"
         "    assert 'rgnir_torch.' + name in names, name\n"
         "print(len(names))\n"
     )

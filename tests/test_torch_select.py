@@ -334,4 +334,6 @@ def test_selftest_passes_on_cpu(capsys):
     assert selftest.main(device="cpu") == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-1] == '{"result": "PASS", "failures": []}'
-    assert sum('"check"' in line for line in lines) == 18  # sections 1-4
+    assert sum('"check"' in line for line in lines) == 20  # sections 1-5
+    for name in ("sharded_change_shift", "sharded_change_local_field"):  # section 5
+        assert any(f'"check": "{name}", "ok": true' in line for line in lines), name
