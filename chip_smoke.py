@@ -136,6 +136,21 @@ Phases, each reported on its own line:
    ``local_tile``: the plant exact, four shards equal to one, the wall
    (median of 5), the device time by class (on one shard also its longest
    device rows) and the peak device memory;
+4i. the entry points (``entry_point_checks``): the CLI's subcommands
+   through ``rgnir_torch.cli.main`` on the card (``analyze --out`` and
+   ``report`` on a 1536 x 2048 ``survey_frame`` TIFF, ``rgn``, ``bench``
+   at 8 x 1024^2, ``batch`` over 4 such TIFFs, ``compare`` of three,
+   ``change`` at the 1024 cap and ``--full-res`` with a planted (18,
+   -28), ``mosaic`` of a 4096^2 ``.npy`` sharded and ``--streamed`` on
+   the card and the host, ``store`` and ``sites`` over a filesystem
+   store and ``store`` over the port's fake MongoDB), each held to its
+   direct library call on the card (exact; means within 1e-5) with its
+   launches pinned; one scripted app session (three frames uploaded, one
+   twice; two compared with their ZIP; a site, an assignment and a time
+   series) against the pipelines called directly; ``tune`` at 1024^2
+   into a temporary cache, then ``analyze`` of a 1024^2 frame at the
+   winners, equal to and timed against the default grids; ``warmup`` then ``warmup --check``, which builds
+   nothing. ``report`` runs only where matplotlib imports;
 5. the kernel self-test (``rgnir_torch.testing.selftest``, its section
    5 the sharded change detection on ``local_mesh()``), which must
    pass;
@@ -2762,6 +2777,458 @@ def sharded_checks(torch, wrappers, timer, smi):
             "byte_hist_f32_live_rc": launches["live_rc"]}
 
 
+# --- phase 4i: the entry points (the CLI, the app, tune, warmup) --------------------
+
+ENTRY_SHAPE = BATCH_TIFF_SHAPE    # a survey TIFF at the store cap
+ENTRY_BATCH = 4                   # TIFFs in the batch subcommand's directory
+ENTRY_MOSAIC = 4096               # the mosaic subcommand's .npy side (two bands of 2048 rows)
+ENTRY_SHIFT = (18, -28)           # planted at full resolution: (9, -14) at the 1024 cap
+ENTRY_BENCH = ("--batch", "8", "--size", "1024", "--iters", "2", "--reps", "2")
+TUNE_SIZE = 1024
+ALL_KINDS = ("NDVI", "GNDVI", "NDWI")
+# the WB frames of change detection: the hist and fused kernels per date
+WB_LAUNCHES = dict(NO_LAUNCHES, hist=2, fused=2)
+
+
+def launches_of(**counts):
+    return dict(NO_LAUNCHES, **counts)
+
+
+def run_cli(torch, wrappers, expected, argv, rc=0):
+    """``rgnir_torch.cli.main(argv)`` with stdout captured, the launch
+    counts set to 0 just before and read just after, held to
+    ``expected``. Returns ``(stdout, wall ms)``."""
+    import contextlib
+    import io
+
+    from rgnir_torch import cli
+
+    buf = io.StringIO()
+    what = "rgnir-torch " + " ".join(str(a) for a in argv)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        got, counts = count_launches(torch, wrappers, [k for k, v in expected.items() if v],
+                                     what, lambda: cli.main([str(a) for a in argv]))
+    wall = (time.perf_counter() - t0) * 1e3
+    require(got == rc, f"{what}: rc {got}, expected {rc}")
+    require(counts == expected, f"{what}: launches {counts} == {expected}")
+    return buf.getvalue(), wall
+
+
+def same_stats_dict(what, got, want):
+    """Printed statistics against the direct call's: exact, but the mean
+    within 1e-5 (float64 atomics add in any order). Returns whether the
+    means were bit-equal too."""
+    require(list(got) == list(want), f"{what}: keys {list(got)} == {list(want)}")
+    bit_equal = True
+    for k, v in want.items():
+        if isinstance(v, dict):
+            bit_equal &= same_stats_dict(f"{what} {k}", got[k], v)
+        elif k.startswith("Mean") or k == "diff_mean":
+            require(abs(got[k] - v) <= MEAN_ATOL, f"{what} {k}: {got[k]} vs {v}")
+            bit_equal &= got[k] == v
+        elif k == "diff_std":
+            require(abs(got[k] ** 2 - v ** 2) <= VAR_ATOL, f"{what} {k}: {got[k]} vs {v}")
+        else:
+            require(got[k] == v, f"{what} {k}: {got[k]} == {v}")
+    return bool(bit_equal)
+
+
+def png_pixels(path):
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return np.asarray(img)
+
+
+def cli_checks(torch, wrappers, root, smi):
+    """The subcommands on the card, each held to its direct library call
+    and its launches pinned. Returns the log lines."""
+    from PIL import Image
+
+    from rgnir_torch.io.decode import decode_file
+    from rgnir_torch.kernels.pipeline import analyze_image_kernel
+    from rgnir_torch.ops.stats import to_analyze_index_dict
+    from rgnir_torch.parallel import analyze_mosaic, change_detection_mosaic, local_mesh
+    from rgnir_torch.pipeline.change import change_detection
+    from rgnir_torch.pipeline.compare import comparison_analysis
+    from rgnir_torch.pipeline.dispatch import analyze_image_auto
+    from rgnir_torch.pipeline.gigapixel import analyze_mosaic_streamed
+    from rgnir_torch.pipeline.rgn import correct_file
+    from rgnir_torch.pipeline.timeseries import time_series_analysis
+    from rgnir_torch.store import FsImageStore
+    from rgnir_torch.testing import fake_mongo
+
+    cuda = torch.device("cuda", 0)
+    lines = []
+    tifs = []
+    for i in range(ENTRY_BATCH):
+        tifs.append(root / "frames" / f"survey_{i}.tif")
+        tifs[-1].parent.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(survey_frame(i, ENTRY_SHAPE)).save(tifs[-1])
+    frames = [decode_file(p) for p in tifs]
+
+    def stats_of(res, kinds):
+        return {k: to_analyze_index_dict(res.stats[k], k) for k in kinds}
+
+    # analyze, with its renders written
+    out, wall = run_cli(torch, wrappers, GROUP_LAUNCHES, ["analyze", tifs[0], "--out", root / "an"])
+    want = analyze_image_auto(frames[0], kinds=ALL_KINDS, with_renders=True, device=cuda)
+    bit = same_stats_dict("analyze", json.loads(out), stats_of(want, ALL_KINDS))
+    check_equal(torch, "analyze wb.png", torch.from_numpy(png_pixels(root / "an" / "survey_0_wb.png")),
+                want.wb.cpu())
+    for k in ALL_KINDS:
+        check_equal(torch, f"analyze {k}.png",
+                    torch.from_numpy(png_pixels(root / "an" / f"survey_0_{k.lower()}.png")),
+                    want.renders[k].cpu())
+    lines.append(f"analyze {ENTRY_SHAPE} --out: {wall:.2f} ms; statistics and the 4 PNGs equal "
+                 f"the direct call (means bit-equal: {bit}); launches {GROUP_LAUNCHES}")
+
+    # report: its figures need matplotlib
+    try:
+        import matplotlib  # noqa: F401
+
+        out, wall = run_cli(torch, wrappers, launches_of(fused=1, byte_hist=2, q24_tail=1),
+                            ["report", tifs[0], root / "report"])
+        require(sorted(p.name for p in (root / "report").iterdir()) == [
+            "ndvi_histogram.png", "ndvi_statistics.txt", "ndvi_visualization.png"], "report files")
+        lines.append(f"report: {wall:.2f} ms")
+    except ImportError:
+        lines.append("report: not run, its figures need matplotlib, which this host lacks "
+                     "(its device step is phase 4g (vi)'s)")
+
+    # rgn
+    out, wall = run_cli(torch, wrappers, launches_of(hist=1, fused=1),
+                        ["rgn", tifs[1], "--out", root / "rgn.png"])
+    check_equal(torch, "rgn", torch.from_numpy(png_pixels(root / "rgn.png")),
+                torch.from_numpy(correct_file(tifs[1], device=cuda)))
+    lines.append(f"rgn --out: {wall:.2f} ms, equal to correct_file")
+
+    # bench: every call of the chains launches the path once
+    calls = (2 + 12) * (1 + 2)  # the two lengths warmed, then timed in two rounds
+    out, wall = run_cli(torch, wrappers, {k: v * calls for k, v in GROUP_LAUNCHES.items()},
+                        ["bench", *ENTRY_BENCH])
+    bench = json.loads(out)
+    require(bench["device"] == torch.cuda.get_device_name(0) and bench["mpix_per_s"] > 0,
+            f"bench line {bench}")
+    lines.append(f"bench {' '.join(ENTRY_BENCH)}: {out.strip()} ({wall:.0f} ms wall for "
+                 f"{calls} calls) [{smi}]")
+
+    # batch over the TIFFs: one dispatch
+    out, wall = run_cli(torch, wrappers, GROUP_LAUNCHES,
+                        ["batch", root / "frames", root / "batch", "--indices", "NDVI"])
+    require(json.loads(out) == {"processed": ENTRY_BATCH, "skipped": 0, "failed": []},
+            f"batch summary {out}")
+    want = analyze_image_auto(np.stack(frames), kinds=("NDVI",), with_renders=True, device=cuda)
+    for i in range(ENTRY_BATCH):
+        check_equal(torch, f"batch survey_{i}",
+                    torch.from_numpy(png_pixels(root / "batch" / "NDVI" / f"survey_{i}_ndvi.png")),
+                    want.renders["NDVI"][i].cpu())
+    lines.append(f"batch of {ENTRY_BATCH} TIFFs: {wall:.2f} ms, every NDVI PNG equal to the "
+                 f"direct call's render; launches {GROUP_LAUNCHES}")
+
+    # compare over three frames: one shape group
+    out, wall = run_cli(torch, wrappers, GROUP_LAUNCHES, ["compare", *tifs[:3]])
+    want = comparison_analysis([(p.name, f) for p, f in zip(tifs, frames[:3])], kinds=ALL_KINDS,
+                               with_figures=False, device=cuda)
+    bit = same_stats_dict("compare", json.loads(out), want.index_stats)
+    lines.append(f"compare 3 frames: {wall:.2f} ms, equal to comparison_analysis (means "
+                 f"bit-equal: {bit})")
+
+    # change: the 1024 cap, then full resolution on every card
+    late = displaced(frames[0], *ENTRY_SHIFT, seed=200, change=True)
+    Image.fromarray(late).save(root / "late.tif")
+    out, wall = run_cli(torch, wrappers, WB_LAUNCHES, ["change", tifs[0], root / "late.tif"])
+    got = json.loads(out)
+
+    def wb(img):
+        return analyze_image_kernel(torch.as_tensor(img, device=cuda), kinds=()).wb
+
+    res = change_detection(wb(frames[0]), wb(late), "NDVI", with_figure=False, device=cuda)
+    require(got["shift"] == [float(s) for s in res["shift"]] == [v / 2 for v in ENTRY_SHIFT],
+            f"change shift {got['shift']}")
+    for k, v in (("diff_mean", float(res["diff"].mean())), ("diff_min", float(res["diff"].min())),
+                 ("diff_max", float(res["diff"].max()))):
+        require(got[k] == v, f"change {k}: {got[k]} == {v}")
+    lines.append(f"change (1024 cap): {wall:.2f} ms, shift {got['shift']} exact, equal to "
+                 f"change_detection; launches {WB_LAUNCHES}")
+    n_shards = torch.cuda.device_count()
+    out, wall = run_cli(torch, wrappers, launches_of(byte_hist=4 * n_shards),
+                        ["change", tifs[0], root / "late.tif", "--full-res"])
+    got = json.loads(out)
+    res = change_detection_mosaic(frames[0], late, "NDVI", mesh=local_mesh())
+    want = {"shift": [float(s) for s in res.shift.cpu()], "diff_mean": float(res.stats.mean),
+            "diff_std": float(res.stats.std), "diff_min": float(res.stats.min),
+            "diff_max": float(res.stats.max), "diff_median": float(res.stats.median)}
+    require(want["shift"] == list(map(float, ENTRY_SHIFT)), f"full-res shift {want['shift']}")
+    same_stats_dict("change --full-res", got, want)
+    lines.append(f"change --full-res on {n_shards} card(s): {wall:.2f} ms, shift "
+                 f"{got['shift']} exact, equal to change_detection_mosaic")
+
+    # mosaic: the sharded kernel body, then streamed in bands on the card and on the host
+    mosaic = np.random.default_rng((SEED, 4096)).integers(
+        0, 256, (ENTRY_MOSAIC, ENTRY_MOSAIC, 3), dtype=np.uint8)
+    np.save(root / "mosaic.npy", mosaic)
+    kinds = ("NDVI", "GNDVI")
+    arg = ["--indices", ",".join(kinds)]
+    out, wall = run_cli(torch, wrappers,
+                        {k: v * n_shards for k, v in GROUP_LAUNCHES.items()},
+                        ["mosaic", root / "mosaic.npy", *arg])
+    want = analyze_mosaic(mosaic, kinds=kinds, mesh=local_mesh(), impl="kernel")
+    same_stats_dict("mosaic", json.loads(out), stats_of(want, kinds))
+    lines.append(f"mosaic {ENTRY_MOSAIC}^2 .npy: {wall:.2f} ms, equal to analyze_mosaic")
+    bands = ENTRY_MOSAIC // 2048
+    for reduce, expected in (("device", launches_of(jointhist=bands)), ("host", NO_LAUNCHES)):
+        out, wall = run_cli(torch, wrappers, expected,
+                            ["mosaic", root / "mosaic.npy", *arg, "--streamed", "--reduce", reduce])
+        want = analyze_mosaic_streamed(mosaic, kinds=kinds, reduce=reduce,
+                                       device=cuda if reduce == "device" else None)
+        same_stats_dict(f"mosaic --streamed {reduce}", json.loads(out), stats_of(want, kinds))
+        lines.append(f"mosaic --streamed --reduce {reduce}: {wall:.2f} ms, equal to "
+                     f"analyze_mosaic_streamed; launches {expected}")
+
+    # store and sites over the filesystem store, then the store over the port's fake MongoDB
+    fs = ["--root", root / "store"]
+    out, wall = run_cli(torch, wrappers, NO_LAUNCHES,
+                        ["store", "upload", *tifs[:3], tifs[0], *fs])
+    ids = re.findall(r"stored \S+ -> (\S+)", out)
+    require(len(ids) == 3 and "duplicate skipped: survey_0.tif" in out, f"store upload: {out}")
+    walls = [wall]
+    listing, wall = run_cli(torch, wrappers, NO_LAUNCHES, ["store", "list", *fs])
+    walls.append(wall)
+    out, wall = run_cli(torch, wrappers, NO_LAUNCHES, ["sites", "create", "--name", "Field A", *fs])
+    site = re.search(r"created site (\S+):", out).group(1)
+    for i in ids:
+        run_cli(torch, wrappers, NO_LAUNCHES,
+                ["sites", "assign", "--image-id", i, "--site-id", site, *fs])
+    table, wall = run_cli(torch, wrappers, GROUP_LAUNCHES,
+                          ["sites", "timeseries", "--site-id", site, *fs])
+    store = FsImageStore(root / "store")
+    seq = [(r.upload_date, store.load_array(r.image_id)[1]) for r in store.site_images(site)]
+    want = time_series_analysis(seq, "NDVI", with_figures=False, device=cuda)
+    require(table.strip() == want.table.to_string(index=False).strip(),
+            f"timeseries table:\n{table}\nvs\n{want.table.to_string(index=False)}")
+    lines.append(f"store upload 4 (1 duplicate) {walls[0]:.2f} ms, list {walls[1]:.2f} ms, "
+                 f"sites create, assign 3, timeseries {wall:.2f} ms (table equal to "
+                 f"time_series_analysis; launches {GROUP_LAUNCHES})")
+    fake_mongo.reset()
+    with fake_mongo.installed():
+        mongo = ["--mongo", "mongodb://chip-smoke"]
+        run_cli(torch, wrappers, NO_LAUNCHES, ["store", "upload", *tifs[:3], tifs[0], *mongo])
+        mlisting, wall = run_cli(torch, wrappers, NO_LAUNCHES, ["store", "list", *mongo])
+
+    def masked(text):  # without the ids and the upload times
+        return sorted(re.sub(r"^\S+ |\d{4}-\d{2}-\d{2} \d{2}:\d{2}", "", ln)
+                      for ln in text.splitlines())
+
+    require(masked(mlisting) == masked(listing), f"mongo listing {mlisting} vs {listing}")
+    lines.append(f"store through the fake MongoDB: the same listing as the filesystem store "
+                 f"({wall:.2f} ms)")
+    return lines
+
+
+def app_checks(torch, wrappers, root):
+    """One scripted app session on the card: three frames uploaded (one
+    twice), two compared with their ZIP, a site, an assignment and a time
+    series, each against the pipelines called directly."""
+    import io
+    import zipfile
+
+    from rgnir_torch.app import streamlit_app as app
+    from rgnir_torch.pipeline.compare import comparison_analysis
+    from rgnir_torch.pipeline.export import export_processed_zip
+    from rgnir_torch.pipeline.timeseries import time_series_analysis
+    from rgnir_torch.store import FsImageStore
+    from rgnir_torch.testing.fake_streamlit import AppHarness, UploadedFile
+
+    cuda = torch.device("cuda", 0)
+    saved = {k: os.environ.get(k) for k in ("RGNIR_STORE_ROOT", "RGNIR_TORCH_DEVICE",
+                                            "MONGODB_URI")}
+    os.environ["RGNIR_STORE_ROOT"] = str(root / "app_store")
+    os.environ.pop("RGNIR_TORCH_DEVICE", None)  # the app's default: the card
+    os.environ.pop("MONGODB_URI", None)
+    try:
+        store = FsImageStore(root / "app_store")
+        files = [UploadedFile(f"survey_{i}.tif", (root / "frames" / f"survey_{i}.tif").read_bytes())
+                 for i in range(3)]
+        h = AppHarness(app.main)
+        walls = {}
+
+        def step(name, expected):
+            t0 = time.perf_counter()
+            _, counts = count_launches(torch, wrappers, [k for k, v in expected.items() if v],
+                                       f"app {name}", h.run)
+            walls[name] = (time.perf_counter() - t0) * 1e3
+            require(counts == expected, f"app {name}: launches {counts} == {expected}")
+
+        h.set("Upload RGNir images", files + [UploadedFile("again.tif", files[0].getvalue())])
+        step("upload", NO_LAUNCHES)
+        require("Skipped duplicate in batch: again.tif" in h.values("warning"), "app dedupe")
+        require(store.list_images(with_total=True)[1] == 3, "app stored three")
+        h.set("Upload RGNir images", [])
+        recs = {r.filename: r for r in store.list_images(per_page=10)[0]}
+        for name, rec in recs.items():
+            h.set(f"sel_{rec.image_id}", name in ("survey_0.tif", "survey_1.tif"))
+        h.click("Generate Comparison Analysis")
+        step("compare", launches_of(hist=1, fused=2, byte_hist=4, q24_tail=2))
+        selected = h.state["selected_images"]
+        images = [(store.load_array(i)[0].filename, store.load_array(i)[1]) for i in selected]
+        figures = app.figures_available()
+        want = comparison_analysis(images, kinds=ALL_KINDS, with_figures=figures, device=cuda)
+        shown = [(e["label"], e["value"]) for e in h.by_type("metric")]
+        expect = [(label, f"{v:.3f}") for k in ALL_KINDS for stats in want.index_stats[k].values()
+                  for label, v in stats.items()]
+        require(shown == expect, f"app metrics {shown[:4]} vs {expect[:4]}")
+        (zip_el,) = [e for e in h.by_type("download_button")
+                     if e["file_name"] == "processed_images.zip"]
+        zip_want = export_processed_zip(want.wb_arrays[0], ALL_KINDS, figures=figures,
+                                        device=cuda)
+        za, zb = (zipfile.ZipFile(io.BytesIO(z)) for z in (zip_el["value"], zip_want))
+        require(za.namelist() == zb.namelist()
+                and all(za.read(n) == zb.read(n) for n in za.namelist()),
+                "app ZIP entries equal export_processed_zip's")
+        h.set("Site Name", "Field A")
+        h.click("Create Site")
+        step("create site", NO_LAUNCHES)
+        h.unset("Site Name")
+        h.set("Assign images to this site", lambda options: options)
+        h.click("Assign")
+        step("assign", NO_LAUNCHES)
+        h.set("Assign images to this site", [])
+        h.set("Index", "NDVI")
+        h.click("Generate Time Series Analysis")
+        step("time series", GROUP_LAUNCHES)
+        (site,) = store.list_sites()
+        seq = [(r.upload_date, store.load_array(r.image_id)[1]) for r in store.site_images(site.site_id)]
+        want = time_series_analysis(seq, "NDVI", with_figures=figures, device=cuda)
+        (table,) = h.values("dataframe")
+        require(table.equals(want.table), f"app table\n{table}\nvs\n{want.table}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return (f"app session on the card (figures {figures}): "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in walls.items())
+            + f"; {len(shown)} metric tiles, the ZIP's {len(za.namelist())} entries and the "
+              f"time-series table equal the pipelines called directly")
+
+
+def tune_checks(torch, wrappers, root):
+    """``tune`` at one size into a temporary cache (every candidate exact,
+    checked by tune itself); each winner looked up for a launch of that
+    size; ``analyze`` of a frame of that size with the winners picked up,
+    equal to the default grids; then ``analyze_image_auto`` on that frame
+    timed at the winners against the default grids, in turns."""
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    from rgnir_torch import cli
+    from rgnir_torch.ops.stats import to_analyze_index_dict
+    from rgnir_torch.pipeline.dispatch import analyze_image_auto
+    from rgnir_torch.utils import autotune
+    from rgnir_torch.utils.microbench import chain_time_ab
+
+    cuda = torch.device("cuda", 0)
+    saved = os.environ.get("RGNIR_TORCH_AUTOTUNE_CACHE")
+    tuned, empty = root / "autotune.json", root / "empty.json"
+
+    def use(path):
+        os.environ["RGNIR_TORCH_AUTOTUNE_CACHE"] = str(path)
+        autotune.invalidate_cache()
+
+    use(tuned)
+    lines = []
+    try:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            require(cli.main(["tune", "--sizes", str(TUNE_SIZE)]) == 0, "tune rc")
+        wall = (time.perf_counter() - t0) * 1e3
+        text = buf.getvalue()
+        per = [json.loads(ln) for ln in text.splitlines() if ln.startswith('{"size"')]
+        winners = json.loads(text[text.index("{\n"):])["winners"]
+        require(len(per) == 3 and len(winners) == 3, f"tune output {text}")
+        for p in per:
+            lines.append(f"tune {TUNE_SIZE}^2 {p['kernel']}: ms by blocks per SM {p['ms']}, "
+                         f"winner {p['winner']}")
+        kind = autotune.device_kind(cuda)
+        n = TUNE_SIZE * TUNE_SIZE
+        picked = {name: autotune.blocks_per_sm(name, n, cuda)
+                  for name in ("hist", "fused", "fused_hist")}
+        require(all(v == winners[autotune.key(k, n, kind)] for k, v in picked.items()),
+                f"a launch of {n} pixels looks up {picked}, the winners are {winners}")
+        frame = survey_frame(9, (TUNE_SIZE, TUNE_SIZE))
+        Image.fromarray(frame).save(root / "tuned.tif")
+        out, _ = run_cli(torch, wrappers, GROUP_LAUNCHES, ["analyze", root / "tuned.tif"])
+        use(empty)
+        want = analyze_image_auto(frame, kinds=ALL_KINDS, with_renders=False, device=cuda)
+        bit = same_stats_dict("analyze at the tuned grids", json.loads(out),
+                              {k: to_analyze_index_dict(want.stats[k], k) for k in ALL_KINDS})
+        img = torch.from_numpy(frame).to(cuda)
+
+        def timed(path):
+            def body(i, carry):
+                if i == 0:  # once a chain: its cost cancels in the slope
+                    use(path)
+                return analyze_image_auto(img, kinds=ALL_KINDS, with_renders=False,
+                                          device=cuda)
+            return body
+
+        ms = chain_time_ab({"winners": timed(tuned), "default": timed(empty)}, None,
+                           ns=(5, 30), reps=3, device=cuda)
+        lines.append(f"tune: {wall:.0f} ms; analyze at the winners {picked} equals the default "
+                     f"grids (means bit-equal: {bit}); analyze_image_auto {TUNE_SIZE}^2, three "
+                     f"kinds: {ms['winners']:.4f} ms at the winners, {ms['default']:.4f} ms at "
+                     f"the default grids")
+    finally:
+        if saved is None:
+            os.environ.pop("RGNIR_TORCH_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["RGNIR_TORCH_AUTOTUNE_CACHE"] = saved
+        autotune.invalidate_cache()
+    return lines
+
+
+def warmup_checks(torch, wrappers):
+    """``warmup`` then ``warmup --check``: the second builds nothing."""
+    from rgnir_torch import cli
+
+    lines = []
+    calls = len(cli.WARMUP_SHAPES)  # one analysis per shape
+    for argv in (["warmup"], ["warmup", "--check"]):
+        out, wall = run_cli(torch, wrappers,
+                            {k: v * calls for k, v in GROUP_LAUNCHES.items()}, argv)
+        res = json.loads(out)
+        require(argv[-1] != "--check" or res["new_libraries"] == [], f"warmup --check {res}")
+        lines.append(f"{' '.join(argv)}: {wall:.0f} ms, libraries {res['libraries']}, "
+                     f"new {res['new_libraries']}, unavailable here {res['unavailable']}")
+    return lines
+
+
+def entry_point_checks(torch, wrappers, smi):
+    """Phase 4i."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / f"chip_smoke_4i_{os.getpid()}"
+    root.mkdir(parents=True, exist_ok=True)
+    try:
+        for line in cli_checks(torch, wrappers, root, smi):
+            log(line)
+        log(app_checks(torch, wrappers, root))
+        for line in tune_checks(torch, wrappers, root):
+            log(line)
+        for line in warmup_checks(torch, wrappers):
+            log(line)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 4i took {time.perf_counter() - t_phase:.1f} s")
+
+
 KERNEL_SOURCES = {
     "hist": ("rgnir_torch/csrc/hist.cu", "rgnir_tpu/kernels/hist.py:39"),
     "fused": ("rgnir_torch/csrc/fused.cu", "rgnir_tpu/kernels/fused.py:78"),
@@ -2863,6 +3330,7 @@ def main() -> int:
     records["jointhist"], giga_launches = gigapixel_checks(torch, WRAPPERS, timer, rates, smi)
     path_launches["jointhist"] = giga_launches["jointhist"]
     path_launches.update(sharded_checks(torch, WRAPPERS, timer, smi))
+    entry_point_checks(torch, WRAPPERS, smi)
 
     # 5. the kernel self-test
     from rgnir_torch.testing import selftest

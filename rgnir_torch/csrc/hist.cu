@@ -49,6 +49,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBlocksPerSM = 4;
+constexpr int kMaxBlocksPerSM = 64;  // the most a caller may ask for
 constexpr int kRowBytes = 32 * 16;        // one coalesced 16-byte load per lane
 constexpr int kItemBytes = 3 * kRowBytes;  // a warp item: a multiple of 3 and 16
 
@@ -145,9 +146,13 @@ hist_kernel(const uint8_t* __restrict__ img, long long frame_stride,
 // img: (frames, H, W, 3) uint8, contiguous, frames stride bytes apart;
 // the first valid bytes of each frame (valid <= stride, a multiple of 3)
 // are counted into out: (frames, 3, 256) int32, zeroed by the caller.
+// blocks_per_sm: the resident blocks an SM is given (the grid's only
+// tunable, rgnir_torch/utils/autotune.py); 0 takes kBlocksPerSM.
 RGNIR_EXPORT int rgnir_hist(const void* img, long long frames, long long stride,
-                            long long valid, void* out, void* stream) {
-  if (valid < 0 || valid > stride || valid % 3 != 0) {
+                            long long valid, void* out, int blocks_per_sm,
+                            void* stream) {
+  if (valid < 0 || valid > stride || valid % 3 != 0 || blocks_per_sm < 0 ||
+      blocks_per_sm > kMaxBlocksPerSM) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (frames > 0 && stride > 0) {
@@ -156,7 +161,8 @@ RGNIR_EXPORT int rgnir_hist(const void* img, long long frames, long long stride,
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     // Blocks of a frame: its share of the resident grid, and no more than
     // give every warp an item.
-    const long long resident = static_cast<long long>(sms) * kBlocksPerSM;
+    const long long resident =
+        static_cast<long long>(sms) * (blocks_per_sm > 0 ? blocks_per_sm : kBlocksPerSM);
     const long long want = (valid / kItemBytes + kWarps - 1) / kWarps;
     const long long per_frame =
         std::max(1LL, std::min(want, (resident + frames - 1) / frames));

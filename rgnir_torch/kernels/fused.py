@@ -36,6 +36,7 @@ from rgnir_torch.kernels._build import launch
 from rgnir_torch.kernels.hist import check_n_valid
 from rgnir_torch.ops.indices import band_indices
 from rgnir_torch.ops.stats import hist_edges, histogram_fixed_bins
+from rgnir_torch.utils import autotune
 
 MAX_KINDS = 8  # kMaxKinds in csrc/fused.cu: kinds per launch
 CHUNK_PIXELS = 1 << 29  # kChunkPixels: pixels of a frame per launch
@@ -45,7 +46,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _I32, _P, _P, _P, _P,
-             _I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P)
+             _I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32)
 
 
 @dataclasses.dataclass
@@ -169,13 +170,17 @@ def fused_analyze(
     round0: Optional[Sequence[bool]] = None,
     n_valid: Optional[int] = None,
     bounds_nonneg: Optional[bool] = None,
+    blocks_per_sm: Optional[int] = None,
 ) -> FusedOut:
     """Fused pass over ``(B, H, W, 3)`` uint8 frames with ``(B, 3)``
     white-balance bounds. ``round0`` picks the kinds whose round-0
     histogram is counted (all by default). ``n_valid``: only the first
     ``n_valid`` pixels of each frame, in row-major order, count in the
     statistics and histograms. ``bounds_nonneg``: see
-    :func:`check_bounds_nonneg`.
+    :func:`check_bounds_nonneg`. ``blocks_per_sm``: the kernel's grid
+    (:mod:`rgnir_torch.utils.autotune`, the key ``fused_hist`` with the
+    histogram, by a launch's pixels; None looks up the tuned value, 0 is
+    the kernel's own rule).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel.
@@ -216,6 +221,8 @@ def fused_analyze(
     ib = np.ascontiguousarray(bands[:, 1])
     thr = np.array([k.coverage_threshold for k in kinds], dtype=np.float32)
     r0mask = np.array(round0, dtype=np.int32)
+    bps = autotune.blocks_per_sm("fused_hist" if with_hist else "fused",
+                                 b * min(hw, CHUNK_PIXELS), dev, blocks_per_sm)
 
     wb = torch.empty_like(img)
     idx = torch.empty(nk, b, h, w, dtype=torch.float32, device=dev)
@@ -252,7 +259,7 @@ def fused_analyze(
                 thr[k0:k1].ctypes.data, r0mask[k0:k1].ctypes.data, int(with_renders),
                 int(with_hist), int(k0 == 0), wb.data_ptr(), at(idx, k0, b * hw),
                 at(rgb, k0, b * hw * 3), at(sums, k0, 1), at(mn, k0, 1), at(mx, k0, 1),
-                at(above, k0, 1), at(hist50, k0, HIST_BINS), at(r0, k0, 256),
+                at(above, k0, 1), at(hist50, k0, HIST_BINS), at(r0, k0, 256), bps,
             ), dev)
             fused_analyze.launches += 1
     return FusedOut(wb=wb, idx=idx, rgb=rgb, sum=sums, min=mn, max=mx,

@@ -15,9 +15,10 @@ import torch
 
 from rgnir_torch.kernels._build import launch
 from rgnir_torch.ops.histogram import channel_histograms as _channel_histograms
+from rgnir_torch.utils import autotune
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-             ctypes.c_longlong, ctypes.c_void_p)
+             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int)
 
 
 def check_n_valid(n_valid: Optional[int], hw: int) -> int:
@@ -40,11 +41,15 @@ def histograms_plain(img: torch.Tensor, n_valid: Optional[int] = None) -> torch.
     return _channel_histograms(img.reshape(img.shape[:-3] + (h * w, 1, 3))[..., :n_valid, :, :])
 
 
-def channel_histograms(img: torch.Tensor, n_valid: Optional[int] = None) -> torch.Tensor:
+def channel_histograms(img: torch.Tensor, n_valid: Optional[int] = None,
+                       blocks_per_sm: Optional[int] = None) -> torch.Tensor:
     """Per-channel counts of ``(H, W, 3)`` or ``(B, H, W, 3)`` uint8
     frames: ``(3, 256)`` or ``(B, 3, 256)`` int32. ``n_valid`` counts
     only the first ``n_valid`` pixels of each frame in row-major order
-    (a shard whose last rows are padding).
+    (a shard whose last rows are padding). ``blocks_per_sm``: the
+    kernel's grid (:mod:`rgnir_torch.utils.autotune`, by the pixels of
+    all frames; None looks up the tuned value, 0 is the kernel's own
+    rule).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel.
@@ -62,8 +67,9 @@ def channel_histograms(img: torch.Tensor, n_valid: Optional[int] = None) -> torc
     n_valid = check_n_valid(n_valid, h * w)
     frames = img.numel() // (h * w * 3) if img.numel() else 0
     out = torch.zeros(frames, 3, 256, dtype=torch.int32, device=img.device)
+    bps = autotune.blocks_per_sm("hist", frames * h * w, img.device, blocks_per_sm)
     launch("hist", "rgnir_hist", _ARGTYPES,
-           (img.data_ptr(), frames, h * w * 3, n_valid * 3, out.data_ptr()), img.device)
+           (img.data_ptr(), frames, h * w * 3, n_valid * 3, out.data_ptr(), bps), img.device)
     channel_histograms.launches += 1
     return out.reshape(img.shape[:-3] + (3, 256))
 

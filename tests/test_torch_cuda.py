@@ -722,3 +722,31 @@ def test_cuda_change_detection_mosaic_matches_plain(cuda):
                                                         (9, -14), tile=(128, 128), halo=8)
     assert launches == {"n_valid": 16, "live_rc": 16}
     assert ref.shift.tolist() == [9.0, -14.0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1024, 1024), (3, 97, 333), (2, 1080, 1920)])
+@pytest.mark.parametrize("blocks_per_sm", [1, 2, 3, 8, 64])
+def test_cuda_grids_keep_the_exact_fields(cuda, shape, blocks_per_sm):
+    """hist and fused at another grid (the autotune argument) equal their
+    own grid (0) on every exact field."""
+    img = torch.from_numpy(_frames(11, shape)).to(cuda)
+    hist = tk.channel_histograms(img, blocks_per_sm=0)
+    assert torch.equal(tk.channel_histograms(img, blocks_per_sm=blocks_per_sm), hist)
+    lo, hi = wb_bounds_from_histogram(hist, n=shape[1] * shape[2])
+    for with_hist in (True, False):
+        want = tk.fused_analyze(img, lo, hi, KINDS, with_hist=with_hist, blocks_per_sm=0)
+        got = tk.fused_analyze(img, lo, hi, KINDS, with_hist=with_hist,
+                               blocks_per_sm=blocks_per_sm)
+        for name in ("wb", "idx", "rgb", "min", "max", "above", "hist50", "r0"):
+            a, b = getattr(got, name), getattr(want, name)
+            assert (a is None and b is None) or torch.equal(a, b), name
+        n = shape[1] * shape[2]
+        assert float((got.sum - want.sum).abs().max()) / n <= MEAN_ATOL
+
+
+@pytest.mark.cuda
+def test_cuda_grid_refused_outside_its_range(cuda):
+    img = torch.zeros(1, 8, 8, 3, dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tk.channel_histograms(img, blocks_per_sm=65)

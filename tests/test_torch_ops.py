@@ -289,16 +289,19 @@ def test_to_analyze_index_dict():
 
 def test_port_imports_no_jax():
     """Every rgnir_torch module imports without JAX, rgnir_tpu,
-    matplotlib or Pillow (the card's machine has none of them)."""
+    matplotlib or Pillow (the card's machine has none of them), and
+    without streamlit or MongoDB's client library (pymongo, bson), which the
+    app and the store import only when they run."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rgnir_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(rgnir_torch.__path__, 'rgnir_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'rgnir_tpu', 'matplotlib', 'PIL')]\n"
+        "       ('jax', 'jaxlib', 'flax', 'rgnir_tpu', 'matplotlib', 'PIL',\n"
+        "        'streamlit', 'pymongo', 'bson')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 62, names\n"
+        "assert len(names) >= 75, names\n"
         "for name in ('native.ring', 'native._build', 'utils.logging', 'utils.profiling',\n"
         "             'pipeline.streaming', 'pipeline.batch', 'io.decode', 'io.cache',\n"
         "             'io.loader', 'io.writer', 'native.imgio', 'utils.manifest',\n"
@@ -307,7 +310,10 @@ def test_port_imports_no_jax():
         "             'pipeline.compare', 'pipeline.gigapixel', 'pipeline.single',\n"
         "             'pipeline.export', 'pipeline.rgn', 'native.jointhist',\n"
         "             'kernels.jointhist', 'tiling', 'tiling.tiles', 'parallel.halo',\n"
-        "             'parallel.change', 'parallel.multihost'):\n"
+        "             'parallel.change', 'parallel.multihost', 'store', 'store.base',\n"
+        "             'store.fs', 'store.mongo', 'testing.fake_mongo', 'testing.fake_streamlit',\n"
+        "             'app', 'app.streamlit_app', 'cli', 'utils.microbench', 'utils.autotune',\n"
+        "             'utils.compile_cache', 'utils.debugging'):\n"
         "    assert 'rgnir_torch.' + name in names, name\n"
         "print(len(names))\n"
     )
