@@ -2,6 +2,11 @@
 """Drive rgnir_torch's analysis path on one CUDA card and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --entry-walls PARENT_ROOT
+
+The second form only times the flows of phases 4f and 4i that reach
+``analyze_image_auto`` with the package of ``PARENT_ROOT`` (a parent's
+``git archive``) and with this tree's, in turns (``entry_walls``).
 
 Phases, each reported on its own line:
 
@@ -38,10 +43,17 @@ Phases, each reported on its own line:
    ``masked_median_rows(n_valid=...)`` with the one-pass kernel against
    its 3-pass select (its launches counted);
 4. paths, each with every kernel's launch count set to 0 just before it
-   and read just after, and held to the path's own set of kernels:
+   and read just after, and held to the path's own set of kernels (the
+   wrappers count eager launches and the graph cache each replay's
+   kernels, since from a static key's second call on
+   ``analyze_image_kernel`` replays a CUDA graph, which calls no wrapper;
+   the launches a capture records and does not run are taken off; the
+   device's records, by ``torch.profiler``, must show each kernel that ran
+   and no more launches than ran):
    ``analyze_image_auto`` on 8 x 1024^2 x 3 frames with NDVI, GNDVI and
    NDWI, renders and histogram on, then on the headline configuration
-   (NDVI only, no histogram), each against the plain
+   (NDVI only, no histogram), each counted on a warm replay whose device
+   records must equal the graph's kernels, each against the plain
    ``pipeline.fused.analyze_image`` on the card; the same three-kind
    batch through ``analyze_image_kernel(select_onepass=True)``, whose
    medians must equal the default path's bit for bit; the f32 select
@@ -62,7 +74,9 @@ Phases, each reported on its own line:
    pixels (more than 2^29, not a multiple of 4) with one kind: hist and
    fused against their plain versions taken in bands of rows, and the
    mosaic's kernel body on one shard of it against four shards, with the
-   phase's peak device memory;
+   phase's peak device memory, then ``analyze_image_auto`` on it three
+   times (eager, captured, replayed) with each call's wall and peak
+   device memory;
 4d. the streaming session, through ``rgnir_torch.native.FrameRing`` and
    ``rgnir_torch.pipeline.streaming.StreamAnalyzer`` on the card: (i)
    four spawned producer processes each push 24 frames of 1080 x 1920
@@ -71,7 +85,8 @@ Phases, each reported on its own line:
    batch-8 analyzer with NDVI, GNDVI and NDWI, statistics only: every
    frame arrives, each ring in order, with the statistics of the plain
    ``analyze_image`` of that frame made again, and each dispatch
-   launches hist 1, fused 1, byte_hist 2 and q24_tail 1; frames/s, MPix/s
+   launches hist 1, fused 1, byte_hist 2 and q24_tail 1, counted under the
+   profiler; then the same session again, unprofiled: frames/s, MPix/s
    and 30 fps streams per card; (ii) one producer at 30 fps for 60
    frames into a batch-1, depth-2 analyzer to the end of its stream:
    every frame, frames 0 and 59 against the plain path, the p50 and p99
@@ -149,8 +164,25 @@ Phases, each reported on its own line:
    twice; two compared with their ZIP; a site, an assignment and a time
    series) against the pipelines called directly; ``tune`` at 1024^2
    into a temporary cache, then ``analyze`` of a 1024^2 frame at the
-   winners, equal to and timed against the default grids; ``warmup`` then ``warmup --check``, which builds
+   winners, equal to the default grids, then timed at each, in turns, on
+   replays; ``warmup`` then ``warmup --check``, which builds
    nothing. ``report`` runs only where matplotlib imports;
+4j. the compiled entry (``compiled_entry_checks``, in a child process of
+   its own: late in this one the profiler stopped recording hist's
+   launches): from an empty graph cache, (a), (b) and (a1) at 8 x
+   1024^2, the stream's batch of 8 x 1080p in its mode, one 1536 x 2048
+   frame and 9 kinds at 2 x 97 x 333, on frames made on the card from the
+   seed: the key's first call eager and its second captured, each equal
+   to ``_analyze_eager`` bit for bit (mean within 1e-5, variance within
+   1e-4), a third call with other frames leaving the second result
+   unchanged and capturing nothing, a replay's launches and the eager
+   pass's, each read from the profiler, equal to the kernels the graph
+   holds, which the eager pass launched (the profiler misses a record now
+   and then: up to 10 profiled calls each); walls of eager and replay
+   calls in turns (host clock, median of 20), a replay's device time, the
+   graph alone, the output copy, the first and second calls' walls and
+   peak memory, the capture and the pool's bytes; then the stream's and
+   the batch's frames/s beside their figures with the eager entry;
 5. the kernel self-test (``rgnir_torch.testing.selftest``, its section
    5 the sharded change detection on ``local_mesh()``), which must
    pass;
@@ -608,20 +640,113 @@ def check_numpy(torch, analyze_image_auto):
     log("path 97x333: statistics, histogram and renders match numpy's")
 
 
+# a kernel of the port by its symbol on the device, demangled or not
+# (fused_kernel<3, true, false> and _ZN..11hist_kernelEPKh.. are fused's and
+# hist's; byte_hist_kernel and jointhist_kernel are not hist's)
+KERNEL_SYMBOL = re.compile(r"(?<![A-Za-z_])(hist|fused|byte_hist|q24_tail|q24_onepass|jointhist)"
+                           r"_kernel")
+
+
+def device_launches(torch, fn):
+    """Run ``fn`` under ``torch.profiler``: ``(its result, {kernel:
+    launches})`` of the kernel records the device reported, by symbol."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counts, other = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        m = KERNEL_SYMBOL.search(e.name()) if e.device_type() == DeviceType.CUDA else None
+        if m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+        elif e.device_type() == DeviceType.CUDA:
+            key = (e.name()[:70], e.activity_type() if hasattr(e, "activity_type") else "")
+            other[key] = other.get(key, 0) + 1
+    device_launches.other = other
+    return out, counts
+
+
+def device_agrees(torch, fn, want, tries=10):
+    """Profile calls of ``fn`` until the device's kernel records equal
+    ``want`` (at most ``tries`` calls); returns the calls it took, and
+    raises if none agreed or any saw more. The profiler now and then
+    misses records of launches that ran, sometimes in a few calls in a row
+    (:func:`count_launches` reports each shortfall on stderr), and never
+    adds one; late in a long process it has recorded no launch of one
+    kernel (hist) in ten calls in a row."""
+    for n in range(1, tries + 1):
+        got = device_launches(torch, fn)[1]
+        if any(got.get(k, 0) > want.get(k, 0) for k in got):
+            raise AssertionError(f"the device saw {got}, more than {want}")
+        if got == want:
+            return n
+    raise AssertionError(f"in {tries} profiled calls the device never saw {want} (last {got}; "
+                         f"other records {device_launches.other})")
+
+
 def count_launches(torch, wrappers, expected, what, fn):
     """Run ``fn`` with every kernel's launch count set to 0 just before
     and read just after; raise unless exactly the ``expected`` kernels
-    launched. Returns ``(fn's result, the counts)``."""
+    launched, and unless the device saw each kernel that ran and no more
+    launches than ran. Returns ``(fn's result, the counts)``.
+
+    A graph's replay calls no wrapper: the graph cache adds each replay's
+    kernels (its graph's ``graph_launches``) to ``replayed_launches``, and
+    counts apart what its captures recorded (``captured_launches``, which
+    the wrappers count and no capture runs). So a kernel's launches are its
+    wrapper's count, less the captured launches, plus the replays'. The
+    device's records (``torch.profiler``) may show no more launches than
+    ran; fewer, which the profiler gives now and then late in a long
+    process (see :func:`device_agrees`), are reported on stderr as
+    ``note:`` lines. The main path's replays are held to the device's
+    records exactly (:func:`replay_launches`)."""
+    from rgnir_torch.kernels.pipeline import GRAPHS
+
+    books = (GRAPHS.captured_launches, GRAPHS.replayed_launches)
     for w in wrappers.values():
         w.launches = 0
-    out = fn()
-    torch.cuda.synchronize()
-    launches = {name: w.launches for name, w in wrappers.items()}
+    before = [dict(b) for b in books]
+    out, device = device_launches(torch, fn)
+    captured, replayed = ({k: n - b0.get(k, 0) for k, n in b.items()}
+                          for b, b0 in zip(books, before))
+    launches = {name: w.launches - captured.get(name, 0) + replayed.get(name, 0)
+                for name, w in wrappers.items()}
     launched = {name for name, c in launches.items() if c > 0}
     if launched != set(expected):
         raise AssertionError(f"{what}: launched {sorted(launched)}, expected "
                              f"{sorted(expected)} ({launches})")
+    seen = {name: device.get(name, 0) for name in wrappers}
+    if any(seen[k] > n for k, n in launches.items()):
+        raise AssertionError(f"{what}: the device saw {seen}, more than the {launches} that "
+                             f"ran")
+    if seen != launches:
+        print(f"note: {what}: the profiler's records {seen} of the {launches} launches that "
+              f"ran; other records {device_launches.other}", file=sys.stderr, flush=True)
     return out, launches
+
+
+def replay_launches(torch, wrappers, expected, what, fn):
+    """``fn``, a call of ``analyze_image_kernel`` or of an entry above it
+    with one static key, made warm (called twice: the key's eager first
+    call, then its capture), then counted by :func:`count_launches` as one
+    replay; the device's records of a warm replay must equal the graph's
+    kernels (:func:`device_agrees`). Returns ``(fn's result, the counts,
+    the profiled calls it took)``."""
+    from rgnir_torch.kernels.pipeline import GRAPHS
+
+    fn()
+    fn()
+    r0, c0 = GRAPHS.replays, GRAPHS.captures
+    out, launches = count_launches(torch, wrappers, expected, what, fn)
+    require(GRAPHS.replays == r0 + 1 and GRAPHS.captures == c0,
+            f"{what}: one replay and no capture")
+    sets = GRAPHS.get(GRAPHS.keys()[-1]).graph_launches
+    require(launches == {k: sets.get(k, 0) for k in launches},
+            f"{what}: launches {launches}, the graph holds {sets}")
+    return out, launches, device_agrees(torch, fn, sets)
 
 
 DEFAULT_PATH = ("hist", "fused", "byte_hist", "q24_tail")
@@ -633,7 +758,7 @@ def run_path(torch, timer, wrappers, img, kinds, with_hist):
     from rgnir_torch.pipeline.dispatch import analyze_image_auto
     from rgnir_torch.pipeline.fused import analyze_image
 
-    res, launches = count_launches(
+    res, launches, tries = replay_launches(
         torch, wrappers, DEFAULT_PATH, f"path {kinds}",
         lambda: analyze_image_auto(img, kinds=kinds, with_hist=with_hist, device="cuda"))
     ref = analyze_image(img, kinds=kinds, with_hist=with_hist, device="cuda")
@@ -644,7 +769,8 @@ def run_path(torch, timer, wrappers, img, kinds, with_hist):
                                                 device="cuda"), reps=3)
     mpix = img.shape[0] * img.shape[1] * img.shape[2] / 1e6
     log(f"path {tuple(img.shape)} kinds={list(kinds)} hist={with_hist}: "
-        f"matches the plain path; launches {launches}; {ms:.4f} ms per batch, "
+        f"matches the plain path; launches of a replay {launches}, the device's records equal "
+        f"(in {tries} profiled call(s)); {ms:.4f} ms per batch, "
         f"{mpix / ms * 1e3:.1f} MPix/s (plain path {plain_ms:.4f} ms)")
     return res, ref, launches
 
@@ -655,7 +781,7 @@ def run_onepass_path(torch, timer, wrappers, img, kinds, default, ref):
     from rgnir_torch.kernels.pipeline import analyze_image_kernel
     from rgnir_torch.pipeline.dispatch import analyze_image_auto
 
-    res, launches = count_launches(
+    res, launches, tries = replay_launches(
         torch, wrappers, ONEPASS_PATH, f"one-pass path {kinds}",
         lambda: analyze_image_kernel(img, kinds=kinds, select_onepass=True))
     for k in kinds:
@@ -672,7 +798,8 @@ def run_onepass_path(torch, timer, wrappers, img, kinds, default, ref):
     # in turns (3-pass, one-pass, one-pass, 3-pass), host noise being large
     t3a, t1a, t1b, t3b = (timer.wall(f) for f in (three, one, one, three))
     log(f"one-pass path {tuple(img.shape)} kinds={list(kinds)}: medians equal the "
-        f"default path's; launches {launches}; ms per batch, in turns: 3-pass "
+        f"default path's; launches of a replay {launches}, the device's records equal (in "
+        f"{tries} profiled call(s)); ms per batch, in turns: 3-pass "
         f"{t3a:.4f}, one-pass {t1a:.4f}, one-pass {t1b:.4f}, 3-pass {t3b:.4f}")
     return launches
 
@@ -1295,8 +1422,42 @@ def big_frame_checks(torch, wrappers, smi):
     log(f"mosaic kernel body {BIG_FRAME}, NDVI: one shard of {n} pixels matches four shards "
         f"of at most {-(-h // 4) * w}; launches {launches1}; peak device memory of the phase "
         f"{peak / 2 ** 30:.2f} GiB [{smi}]")
-    del one, four, img, mosaic
-    torch.cuda.empty_cache()
+    del one, four
+
+    # the compiled entry on the same frame: the key's first call (eager),
+    # its second (captured, then replayed) and its third (a replay), each
+    # with its peak device memory above what was allocated before it
+    from rgnir_torch.kernels import pipeline as kp
+    from rgnir_torch.pipeline.dispatch import analyze_image_auto
+
+    def peak_call(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, (time.perf_counter() - t0) * 1e3,
+                torch.cuda.max_memory_allocated() - base)
+
+    c0 = kp.GRAPHS.captures
+    calls = [peak_call(lambda: analyze_image_auto(img, kinds=("NDVI",), device="cuda"))
+             for _ in range(3)]
+    require(kp.GRAPHS.captures == c0 + 1, f"analyze_image_auto {BIG_FRAME}: one capture")
+    entry = kp.GRAPHS.get(kp.GRAPHS.keys()[-1])
+    require(entry.graph_launches.get("fused") == chunks,
+            f"the graph of {BIG_FRAME} holds {chunks} fused launches: {entry.graph_launches}")
+    for what, (res, _, _) in zip(("captured", "replayed"), calls[1:]):
+        check_replay(torch, f"analyze_image_auto {BIG_FRAME} {what}", res, calls[0][0],
+                     ("NDVI",))
+    log(f"analyze_image_auto {BIG_FRAME}, NDVI, renders and histogram: replays equal the eager "
+        f"first call; launches a replay {entry.graph_launches}; ms and peak device bytes above "
+        f"the frame: first call (eager) {calls[0][1]:.1f} ms, {calls[0][2]}; second (capture "
+        f"{entry.capture_s * 1e3:.1f} ms, replay) {calls[1][1]:.1f} ms, {calls[1][2]}; third "
+        f"(replay) {calls[2][1]:.1f} ms, {calls[2][2]}; the graph's pool {entry.pool_bytes} "
+        f"bytes, the key {entry.nbytes} bytes (limit {kp.graph.MAX_GRAPH_BYTES}) [{smi}]")
+    del calls, entry, img, mosaic
+    kp.GRAPHS.clear()  # its pool back to the card for the phases that follow
 
 
 # --- phase 4d: the streaming session -------------------------------------------
@@ -1429,7 +1590,8 @@ def stream_launches(torch, wrappers, what, analyzer, fn):
 
 def stream_checks(torch, wrappers, smi):
     """Phase 4d: the streaming session on the card, through the
-    entry points a user calls (``FrameRing`` and ``StreamAnalyzer``)."""
+    entry points a user calls (``FrameRing`` and ``StreamAnalyzer``).
+    Returns session (i)'s frames/s."""
     from rgnir_torch.native import FrameRing
     from rgnir_torch.pipeline.streaming import StreamAnalyzer
 
@@ -1438,39 +1600,51 @@ def stream_checks(torch, wrappers, smi):
     mpix = STREAM_SHAPE[0] * STREAM_SHAPE[1] / 1e6
     tag = f"/rgnir_smoke_{os.getpid()}"
 
-    # (i) four rings, unpaced, into one batched analyzer
+    # (i) four rings, unpaced, into one batched analyzer: once with its
+    # launches counted under the profiler, then once unprofiled and timed
     capacity, shm_free = ring_capacity(STREAM_RINGS)
     names = [f"{tag}_{si}" for si in range(STREAM_RINGS)]
     analyzer = StreamAnalyzer(frame_shape=STREAM_SHAPE, kinds=KINDS, batch=STREAM_BATCH)
     analyzer.warmup()
-    rings = [FrameRing.create(name, shape, capacity) for name in names]
-    try:
-        with Producers(names, STREAM_FRAMES, 0) as producers:
-            def run():
-                t0 = time.perf_counter()
-                producers.go.set()
-                got = list(analyzer.run_from_rings(rings))
-                torch.cuda.synchronize()
-                return got, time.perf_counter() - t0
-            (got, seconds), launches, dispatches = stream_launches(
-                torch, wrappers, "stream (i)", analyzer, run)
-            producers.push_times()
-    finally:
-        for r in rings:
-            r.close()
     total = STREAM_RINGS * STREAM_FRAMES
-    require(len(got) == total, f"stream (i): {len(got)} of {total} frames")
-    for si in range(STREAM_RINGS):
-        seqs = [seq for s, seq, _ in got if s == si]
-        require(seqs == list(range(STREAM_FRAMES)), f"stream (i): ring {si} in order")
-    require(sorted(r.frame_id for _, _, r in got) == list(range(total)), "stream (i): frame ids")
-    check_stream_results(torch, "stream (i)", got, KINDS)
-    fps = total / seconds
+
+    def session(what, counted):
+        rings = [FrameRing.create(name, shape, capacity) for name in names]
+        try:
+            with Producers(names, STREAM_FRAMES, 0) as producers:
+                def run():
+                    t0 = time.perf_counter()
+                    producers.go.set()
+                    got = list(analyzer.run_from_rings(rings))
+                    torch.cuda.synchronize()
+                    return got, time.perf_counter() - t0
+                if counted:
+                    (got, seconds), launches, dispatches = stream_launches(
+                        torch, wrappers, what, analyzer, run)
+                else:
+                    (got, seconds), launches, dispatches = run(), None, None
+                producers.push_times()
+        finally:
+            for r in rings:
+                r.close()
+        require(len(got) == total, f"{what}: {len(got)} of {total} frames")
+        for si in range(STREAM_RINGS):
+            seqs = [seq for s, seq, _ in got if s == si]
+            require(seqs == list(range(STREAM_FRAMES)), f"{what}: ring {si} in order")
+        ids = sorted(r.frame_id for _, _, r in got)
+        require(ids == list(range(ids[0], ids[0] + total)), f"{what}: frame ids")
+        check_stream_results(torch, what, got, KINDS)
+        return got, total / seconds, launches, dispatches
+
+    got, fps_profiled, launches, dispatches = session("stream (i)", True)
+    got, fps, _, _ = session("stream (i) timed", False)
     log(f"stream (i) {STREAM_RINGS} rings x {STREAM_FRAMES} frames of {STREAM_SHAPE[0]}x"
         f"{STREAM_SHAPE[1]}, batch {STREAM_BATCH}, kinds {list(KINDS)}, statistics only: all "
-        f"{total} frames in order and equal to the plain path; {fps:.2f} frames/s, "
-        f"{fps * mpix:.1f} MPix/s, {int(fps // 30)} streams of 30 fps; {dispatches} dispatches, "
-        f"launches {launches}; ring capacity {capacity} (/dev/shm free {shm_free} bytes) [{smi}]")
+        f"{total} frames in order and equal to the plain path, twice; {fps:.2f} frames/s, "
+        f"{fps * mpix:.1f} MPix/s, {int(fps // 30)} streams of 30 fps, unprofiled "
+        f"({fps_profiled:.2f} frames/s in the run whose launches the profiler counted); "
+        f"{dispatches} dispatches, launches {launches}; ring capacity {capacity} (/dev/shm "
+        f"free {shm_free} bytes) [{smi}]")
 
     # (ii) one stream paced at 30 fps, batch 1
     name = f"{tag}_paced"
@@ -1523,6 +1697,7 @@ def stream_checks(torch, wrappers, smi):
         f"{time.perf_counter() - t_phase:.1f} s")
     del got, paced, part
     torch.cuda.empty_cache()
+    return fps
 
 
 # --- phase 4e: the batch directory pipeline --------------------------------------
@@ -1653,7 +1828,7 @@ def codec_line():
 def batch_checks(torch, wrappers, smi):
     """Phase 4e: ``rgnir_torch.pipeline.batch.batch_process`` on the card,
     through its entry point: run A with the WB frames, run B resuming it,
-    run C timed."""
+    run C timed. Returns run C's frames/s."""
     import shutil
 
     from rgnir_torch.config import LoaderConfig
@@ -1737,6 +1912,7 @@ def batch_checks(torch, wrappers, smi):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"phase 4e took {time.perf_counter() - t_phase:.1f} s")
+    return good / sec["wall"]
 
 
 # --- phase 4f: alignment, change detection, time series and comparison ----------
@@ -3130,7 +3306,6 @@ def tune_checks(torch, wrappers, root):
     from rgnir_torch.ops.stats import to_analyze_index_dict
     from rgnir_torch.pipeline.dispatch import analyze_image_auto
     from rgnir_torch.utils import autotune
-    from rgnir_torch.utils.microbench import chain_time_ab
 
     cuda = torch.device("cuda", 0)
     saved = os.environ.get("RGNIR_TORCH_AUTOTUNE_CACHE")
@@ -3169,21 +3344,25 @@ def tune_checks(torch, wrappers, root):
         bit = same_stats_dict("analyze at the tuned grids", json.loads(out),
                               {k: to_analyze_index_dict(want.stats[k], k) for k in ALL_KINDS})
         img = torch.from_numpy(frame).to(cuda)
+        timer = Timer(torch)
 
         def timed(path):
-            def body(i, carry):
-                if i == 0:  # once a chain: its cost cancels in the slope
-                    use(path)
-                return analyze_image_auto(img, kinds=ALL_KINDS, with_renders=False,
-                                          device=cuda)
-            return body
+            # the table switched (dropping the other grids' graph), then the
+            # key's eager first call and its capture before the timed replays
+            use(path)
+            return timer.wall(lambda: analyze_image_auto(img, kinds=ALL_KINDS,
+                                                         with_renders=False, device=cuda),
+                              warm=3)
 
-        ms = chain_time_ab({"winners": timed(tuned), "default": timed(empty)}, None,
-                           ns=(5, 30), reps=3, device=cuda)
+        ms = {"winners": [], "default": []}
+        for name, path in (("winners", tuned), ("default", empty), ("default", empty),
+                           ("winners", tuned)):
+            ms[name].append(timed(path))
         lines.append(f"tune: {wall:.0f} ms; analyze at the winners {picked} equals the default "
                      f"grids (means bit-equal: {bit}); analyze_image_auto {TUNE_SIZE}^2, three "
-                     f"kinds: {ms['winners']:.4f} ms at the winners, {ms['default']:.4f} ms at "
-                     f"the default grids")
+                     f"kinds, replays, ms per call (host clock, median of {REPS}, in turns): "
+                     f"winners {ms['winners'][0]:.4f}, default {ms['default'][0]:.4f}, default "
+                     f"{ms['default'][1]:.4f}, winners {ms['winners'][1]:.4f}")
     finally:
         if saved is None:
             os.environ.pop("RGNIR_TORCH_AUTOTUNE_CACHE", None)
@@ -3229,6 +3408,265 @@ def entry_point_checks(torch, wrappers, smi):
     log(f"phase 4i took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 4j: the compiled entry -------------------------------------------------
+
+# frames/s of phase 4d (i) and of 4e's run C with the eager entry, on an
+# H100 80GB HBM3 at 700 W (PERF.md)
+STREAM_FPS_EAGER = "207.52-285.32"
+BATCH_FPS_EAGER = "1.48-1.80"
+
+
+def compiled_cases():
+    """(label, shape, keywords) of phase 4j: (a), (b) and (a1) at the main
+    shape, the stream's batch in its mode, one 1536 x 2048 frame with
+    renders and histogram, and 9 kinds (fused twice) at a small shape."""
+    return (
+        ("(a)", MAIN_SHAPE, dict(kinds=KINDS)),
+        ("(b)", MAIN_SHAPE, dict(kinds=("NDVI",), with_hist=False)),
+        ("(a1)", MAIN_SHAPE, dict(kinds=KINDS, select_onepass=True)),
+        ("stream", (STREAM_BATCH,) + STREAM_SHAPE,
+         dict(kinds=KINDS, with_renders=False, with_hist=False)),
+        ("one frame", BATCH_TIFF_SHAPE, dict(kinds=KINDS)),
+        ("9 kinds", (2, 97, 333), dict(kinds=tuple(many_kinds(9)))),
+    )
+
+
+def check_replay(torch, what, got, want, kinds):
+    """A replay's result against the eager pass's: every exact field bit
+    for bit (wb, index maps, renders, min, max, median, coverage, n, the
+    50-bin histogram); mean within 1e-5 and variance within 1e-4 (fused's
+    float sums add by atomics in any order)."""
+    check_equal(torch, f"{what} wb", got.wb, want.wb)
+    for k in kinds:
+        check_equal(torch, f"{what} idx {k}", got.indices[k], want.indices[k])
+        check_equal(torch, f"{what} render {k}", got.renders.get(k), want.renders.get(k))
+        g, w = got.stats[k], want.stats[k]
+        for field in ("min", "max", "median", "coverage_pct", "n", "histogram"):
+            check_equal(torch, f"{what} {k}.{field}", getattr(g, field), getattr(w, field))
+        check_close(f"{what} {k}.mean", g.mean, w.mean, MEAN_ATOL)
+        check_close(f"{what} {k}.var", g.std ** 2, w.std ** 2, VAR_ATOL)
+
+
+def compiled_case(torch, timer, smi, i, label, shape, kw):
+    """One shape of phase 4j; returns its log line."""
+    from rgnir_torch.kernels import graph
+    from rgnir_torch.kernels import pipeline as kp
+
+    cache = kp.GRAPHS
+    kinds = tuple(k if isinstance(k, str) else k.value for k in kw["kinds"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 40 + i)
+    img, other = (torch.randint(0, 256, shape + (3,), dtype=torch.uint8, device="cuda",
+                                generator=gen) for _ in range(2))
+
+    def eager():
+        return kp._analyze_eager(img, **kw)
+
+    def replay():
+        return kp.analyze_image_kernel(img, **kw)
+
+    def peak_call(fn):
+        """fn's result, its wall in ms and its peak device bytes above
+        what was allocated before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, (time.perf_counter() - t0) * 1e3,
+                torch.cuda.max_memory_allocated() - base)
+
+    before = {k: w.launches for k, w in kp._WRAPPERS.items()}
+    want = eager()
+    eager_set = {k: w.launches - before[k] for k, w in kp._WRAPPERS.items()
+                 if w.launches != before[k]}
+    e0, c0 = cache.eager_calls, cache.captures
+    first, first_wall, first_peak = peak_call(replay)
+    require((cache.eager_calls, cache.captures) == (e0 + 1, c0),
+            f"compiled {label}: the key's first call runs the eager pass")
+    check_replay(torch, f"compiled {label} first call", first, want, kinds)
+    second, second_wall, second_peak = peak_call(replay)
+    require(cache.captures == c0 + 1, f"compiled {label}: the second call captures")
+    entry = cache.get(cache.keys()[-1])
+    sets = entry.graph_launches
+    require(sets and sets == eager_set, f"compiled {label}: the eager pass launched "
+                                        f"{eager_set}, the graph holds {sets} (by the wrappers)")
+    check_replay(torch, f"compiled {label}", second, want, kinds)
+    held = [t.clone() for t in graph.flatten(second)[0]]
+    third = kp.analyze_image_kernel(other, **kw)
+    for t, h in zip(graph.flatten(second)[0], held):
+        check_equal(torch, f"compiled {label}: a replay's result after the next call", t, h)
+    check_replay(torch, f"compiled {label} third call", third, kp._analyze_eager(other, **kw),
+                 kinds)
+    # on the device, a replay launches what the eager pass launches
+    tries = (device_agrees(torch, eager, sets), device_agrees(torch, replay, sets))
+    # in turns, host noise being large: eager, replay, replay, eager
+    e1, r1, r2, e2 = (timer.wall(f) for f in (eager, replay, replay, eager))
+    dev_ms, by = device_profile(torch, replay)
+    graph_ms = timer.kernel(lambda: entry.graph.replay())
+    copy_ms = timer.kernel(lambda: entry.outputs.copy())
+    copy_wall = timer.wall(lambda: entry.outputs.copy())
+    require((cache.eager_calls, cache.captures) == (e0 + 1, c0 + 1),
+            f"compiled {label}: no capture after the second call")
+    busy = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms, {dev_ms / r2:.1%} of its wall"
+    return (f"compiled {label} {shape} {kw}: the first call eager, the second captured; the "
+            f"replays equal _analyze_eager bit for bit (mean, variance within {MEAN_ATOL}, "
+            f"{VAR_ATOL}), a third call leaves the second's result unchanged and captures "
+            f"nothing; launches a replay {sets} = eager on the device (in {tries[1]} and "
+            f"{tries[0]} profiled calls); wall ms (host clock, median of {REPS}, in turns) eager "
+            f"{e1:.4f}, replay {r1:.4f}, replay {r2:.4f}, eager {e2:.4f}; a replay's device time "
+            f"{busy}; the graph alone {graph_ms:.4f} ms on the device; output copy "
+            f"{copy_ms:.4f} ms on the device, {copy_wall:.4f} ms wall, {entry.outputs.nbytes} "
+            f"bytes; first call (eager) {first_wall:.1f} ms, peak {first_peak} bytes above the "
+            f"inputs; second call {second_wall:.1f} ms (capture {entry.capture_s * 1e3:.1f} ms "
+            f"of it), peak {second_peak} bytes; pool {entry.pool_bytes} bytes, the key "
+            f"{entry.nbytes} bytes [{smi}]")
+
+
+COMPILED_FLAG = "--compiled-entry"  # runs phase 4j alone: the child process below
+
+
+def compiled_entry_checks(torch, smi, stream_fps, batch_fps):
+    """Phase 4j, in a process of its own (this script with
+    ``COMPILED_FLAG``): ``analyze_image_kernel`` on CUDA tensors runs a
+    static key's first call eagerly and replays from the second call on a
+    graph captured then (``rgnir_torch/kernels/graph.py``); the process
+    starts with an empty cache. Its own process, because late in
+    this one the profiler stopped recording one kernel's launches at all
+    (see :func:`device_agrees`); the libraries are built by then. This
+    process's graphs and cached blocks are freed first."""
+    from rgnir_torch.kernels import pipeline as kp
+
+    kp.GRAPHS.clear()
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    subprocess.run([sys.executable, os.path.abspath(__file__), COMPILED_FLAG, smi,
+                    repr(stream_fps), repr(batch_fps)], check=True, timeout=900)
+
+
+def compiled_entry_child(torch, smi, stream_fps, batch_fps):
+    """The body of phase 4j (see :func:`compiled_entry_checks`)."""
+    from rgnir_torch.kernels import pipeline as kp
+
+    t_phase = time.perf_counter()
+    timer = Timer(torch)
+    for i, (label, shape, kw) in enumerate(compiled_cases()):
+        log(compiled_case(torch, timer, smi, i, label, shape, kw))
+    log(f"compiled entry: {kp.GRAPHS.eager_calls} first calls, {kp.GRAPHS.captures} captures, "
+        f"{kp.GRAPHS.replays} replays and {kp.GRAPHS.evictions} drops in this process, "
+        f"{len(kp.GRAPHS)} graphs of {kp.GRAPHS.nbytes} bytes cached (limit "
+        f"{kp.graph.MAX_GRAPH_BYTES}); stream (i) {stream_fps:.2f} frames/s unprofiled (eager "
+        f"entry: {STREAM_FPS_EAGER}), batch run C {batch_fps:.2f} frames/s (eager entry: "
+        f"{BATCH_FPS_EAGER}); "
+        f"phase 4j took {time.perf_counter() - t_phase:.1f} s [{smi}]")
+
+
+# --- the flows' walls against another tree's: the parent, say ------------------
+
+WALLS_FLAG = "--entry-walls"              # PARENT_ROOT: this tree's flows and the parent's
+WALLS_CHILD_FLAG = "--entry-walls-child"  # ROOT SMI: one tree's flows in a process of its own
+WALL_CALLS = 6
+
+
+def entry_walls(smi, parent_root):
+    """The flows of phases 4f and 4i that reach ``analyze_image_auto``,
+    each called ``WALL_CALLS`` times in a row, with the package of
+    ``parent_root`` (a parent's ``git archive``) and this tree's, in turns
+    (parent, this, this, parent), each tree in a process of its own."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for root in (parent_root, here, here, parent_root):
+        sys.stdout.flush()
+        subprocess.run([sys.executable, os.path.abspath(__file__), WALLS_CHILD_FLAG,
+                        os.path.abspath(root), smi], check=True, timeout=900)
+
+
+def entry_walls_child(torch, root, smi):
+    """One tree's part of :func:`entry_walls`: the package found at
+    ``root``, its kernels built there; the libraries loaded by a call at
+    another shape; then each flow from the key's first call on (the graph
+    cache emptied before each flow, where the tree has one): the wall of
+    each call (host clock, inputs on the host, as a user passes them), and
+    how many of the flow's analysis calls ran eagerly, were captured or
+    replayed."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from PIL import Image
+
+    sys.path.insert(0, root)
+    import rgnir_torch
+    from rgnir_torch import cli
+    from rgnir_torch.kernels import pipeline as kp
+    from rgnir_torch.kernels._build import build
+    from rgnir_torch.pipeline.compare import comparison_analysis
+    from rgnir_torch.pipeline.dispatch import analyze_image_auto
+    from rgnir_torch.pipeline.export import export_processed_zip
+    from rgnir_torch.pipeline.rgn import correct_file
+    from rgnir_torch.pipeline.single import ndvi_report_data
+    from rgnir_torch.pipeline.timeseries import date_stats
+
+    require(os.path.dirname(rgnir_torch.__file__) == os.path.join(root, "rgnir_torch"),
+            f"the package of {root}")
+    build()
+    cache = getattr(kp, "GRAPHS", None)
+    analyze_image_auto(np.zeros((64, 96, 3), np.uint8), kinds=KINDS)
+    torch.cuda.synchronize()
+    _, _, series = flow_inputs()
+    images = [(f"survey_{i}.tif", survey_frame(i, shape))
+              for i, shape in enumerate(COMPARE_SHAPES)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_walls_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        tifs = []
+        for name, a in images[:3]:
+            tifs.append(os.path.join(tmp, name))
+            Image.fromarray(a).save(tifs[-1])
+        wb = correct_file(tifs[0], device="cuda")
+
+        def quiet_cli(argv):
+            with contextlib.redirect_stdout(io.StringIO()):
+                require(cli.main(argv) == 0, f"rgnir-torch {' '.join(argv)}")
+
+        flows = (
+            (f"time series date_stats, {FLOW_DATES} dates", lambda: date_stats(series, "NDVI")),
+            (f"comparison_analysis, {len(images)} images in 2 shape groups",
+             lambda: comparison_analysis(images, kinds=KINDS, with_figures=False)),
+            ("correct_file (rgn, kinds=())", lambda: correct_file(tifs[1], device="cuda")),
+            ("ndvi_report_data (single, with_wb=False)",
+             lambda: ndvi_report_data(images[1][1], device="cuda")),
+            ("export_processed_zip(figures=False)",
+             lambda: export_processed_zip(wb, KINDS, figures=False, device="cuda")),
+            ("cli analyze one TIFF", lambda: quiet_cli(["analyze", tifs[2]])),
+            ("cli compare three TIFFs", lambda: quiet_cli(["compare", *tifs])),
+        )
+        tree = "this tree" if cache is not None else "no graph cache"
+        for label, fn in flows:
+            if cache is not None:
+                cache.clear()
+                before = (cache.eager_calls, cache.captures, cache.replays)
+            walls = []
+            for _ in range(WALL_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            calls = "no graph cache: every analysis call eager"
+            if cache is not None:
+                e, c, r = (n - b for n, b in zip(
+                    (cache.eager_calls, cache.captures, cache.replays), before))
+                calls = (f"analysis calls: {e} eager, {c} captured, {r} replayed "
+                         f"({r / (e + r):.0%} replayed)")
+            log(f"walls {label} [{tree}, {root}]: ms per call, in order "
+                f"{', '.join(f'{w:.2f}' for w in walls)}; calls 3-{WALL_CALLS} median "
+                f"{statistics.median(walls[2:]):.2f}; {calls} [{smi}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 KERNEL_SOURCES = {
     "hist": ("rgnir_torch/csrc/hist.cu", "rgnir_tpu/kernels/hist.py:39"),
     "fused": ("rgnir_torch/csrc/fused.cu", "rgnir_tpu/kernels/fused.py:78"),
@@ -3253,6 +3691,14 @@ KERNEL_SOURCES = {
 }
 
 
+def device_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import torch
 
@@ -3265,15 +3711,22 @@ def main() -> int:
         print("chip_smoke: rgnir_torch is not beside this script", file=sys.stderr)
         return 3
     sys.path.insert(0, root)
+    if sys.argv[1:2] == [COMPILED_FLAG]:
+        smi, stream_fps, batch_fps = sys.argv[2], float(sys.argv[3]), float(sys.argv[4])
+        compiled_entry_child(torch, smi, stream_fps, batch_fps)
+        return 0
+    if sys.argv[1:2] == [WALLS_CHILD_FLAG]:
+        entry_walls_child(torch, sys.argv[2], sys.argv[3])
+        return 0
+    if sys.argv[1:2] == [WALLS_FLAG]:
+        entry_walls(device_line(), sys.argv[2])
+        return 0
     from rgnir_torch.kernels import WRAPPERS
     from rgnir_torch.kernels._build import build
     from rgnir_torch.pipeline.dispatch import analyze_image_auto
 
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = device_line()
     kind = torch.cuda.get_device_name(0)
     log(smi)
     log(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3324,13 +3777,14 @@ def main() -> int:
     path_launches.update(onepass_mode_launches)
     many_kinds_checks(torch, WRAPPERS)
     big_frame_checks(torch, WRAPPERS, smi)
-    stream_checks(torch, WRAPPERS, smi)
-    batch_checks(torch, WRAPPERS, smi)
+    stream_fps = stream_checks(torch, WRAPPERS, smi)
+    batch_fps = batch_checks(torch, WRAPPERS, smi)
     flow_checks(torch, WRAPPERS, timer, smi)
     records["jointhist"], giga_launches = gigapixel_checks(torch, WRAPPERS, timer, rates, smi)
     path_launches["jointhist"] = giga_launches["jointhist"]
     path_launches.update(sharded_checks(torch, WRAPPERS, timer, smi))
     entry_point_checks(torch, WRAPPERS, smi)
+    compiled_entry_checks(torch, smi, stream_fps, batch_fps)
 
     # 5. the kernel self-test
     from rgnir_torch.testing import selftest

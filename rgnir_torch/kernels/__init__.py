@@ -2,7 +2,9 @@
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
 PyTorch version for a CPU tensor, and counts its launches in its
-``launches`` attribute. Nothing builds at import.
+``launches`` attribute. ``analyze_image_kernel`` replays a CUDA graph of
+these launches (``kernels/graph.py``), which calls no wrapper: the graph
+cache counts its replays' launches. Nothing builds at import.
 """
 
 from rgnir_torch.kernels.fused import fused_analyze

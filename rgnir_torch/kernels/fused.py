@@ -32,6 +32,7 @@ import torch
 
 from rgnir_torch.color import get_lut
 from rgnir_torch.config import EPSILON, HIST_BINS, IndexKind
+from rgnir_torch.kernels import graph
 from rgnir_torch.kernels._build import launch
 from rgnir_torch.kernels.hist import check_n_valid
 from rgnir_torch.ops.indices import band_indices
@@ -215,7 +216,7 @@ def fused_analyze(
     if lo.shape != (b, 3) or hi.shape != (b, 3):
         raise ValueError(f"expected ({b}, 3) bounds, got {tuple(lo.shape)} "
                          f"and {tuple(hi.shape)}")
-    luts, edges = _tables(tuple(k.cmap_name for k in kinds), dev)
+    luts, edges = graph.cached(_tables, tuple(k.cmap_name for k in kinds), dev)
     bands = np.array([band_indices(k) for k in kinds], dtype=np.int32)
     ia = np.ascontiguousarray(bands[:, 0])
     ib = np.ascontiguousarray(bands[:, 1])
@@ -230,7 +231,7 @@ def fused_analyze(
            if with_renders else None)
     # the accumulators are views of one buffer (the float64 sums first, so
     # they are 8-byte aligned), set to their starting values by one copy
-    parts = _accumulator_start(b, nk, with_hist, dev).clone().split(
+    parts = graph.cached(_accumulator_start, b, nk, with_hist, dev).clone().split(
         _accumulator_sizes(b, nk, with_hist))
     sums = parts[0].view(torch.float64).view(b, nk)
     mn = parts[1].view(torch.float32).view(b, nk)

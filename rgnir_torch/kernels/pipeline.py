@@ -8,23 +8,33 @@ pass that also gives the centred sum of squares; or, with
 selected rows, 32 frames of two kinds). On CUDA
 tensors each step launches its kernel; on CPU tensors each takes its
 plain version, so the same composition runs in the CPU tests.
+
+:func:`_analyze_eager` is that composition, run step by step from
+Python. :func:`analyze_image_kernel` runs it so on CPU tensors and on the
+first call with a static key on a CUDA tensor; from the second call on it
+replays the CUDA graph of that key (:mod:`rgnir_torch.kernels.graph`),
+captured from ``_analyze_eager`` on that call, as ``jax.jit`` compiles the
+JAX package's pass once per static configuration.
 Counterpart: ``rgnir_tpu/kernels/pipeline.py``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from rgnir_torch.config import ALL_INDICES, IndexKind, WBConfig
-from rgnir_torch.kernels.fused import fused_analyze
+from rgnir_torch.kernels import graph
+from rgnir_torch.kernels.fused import CHUNK_PIXELS, fused_analyze
 from rgnir_torch.kernels.hist import channel_histograms
-from rgnir_torch.kernels.select import masked_median_rows
+from rgnir_torch.kernels.select import byte_hist, masked_median_rows, q24_onepass, q24_tail
 from rgnir_torch.ops.indices import band_indices
 from rgnir_torch.ops.stats import IndexStats
 from rgnir_torch.ops.wb import wb_bounds_from_histogram
 from rgnir_torch.pipeline.fused import AnalyzeResult
+from rgnir_torch.utils import autotune
 
 
 def _median_plan(kinds: Tuple[IndexKind, ...]) -> Optional[Tuple[int, tuple]]:
@@ -61,7 +71,7 @@ def _median_plan(kinds: Tuple[IndexKind, ...]) -> Optional[Tuple[int, tuple]]:
     return nc, tuple(slots)
 
 
-def analyze_image_kernel(
+def _analyze_eager(
     img: torch.Tensor,
     kinds: Sequence = tuple(k.value for k in ALL_INDICES),
     with_renders: bool = True,
@@ -69,18 +79,10 @@ def analyze_image_kernel(
     select_onepass: Optional[bool] = None,
     with_wb: bool = True,
 ) -> AnalyzeResult:
-    """Kernel-backed analysis of ``(H, W, 3)`` or ``(B, H, W, 3)`` uint8
-    frames on the tensor's device. Same result as
-    ``pipeline.fused.analyze_image``; ``with_hist=False`` leaves
-    ``IndexStats.histogram`` None. ``select_onepass=True`` takes the
-    medians by the one-pass select kernel (frames of at most 1024^2
-    pixels) instead of the 3-pass select; the results are the same.
-
-    ``with_wb=False`` computes the indices on the raw bands: no
-    histogram is taken, and the fused kernel runs with the bounds
-    ``lo = 0``, ``hi = 255``, under which its white balance
-    ``floor(clip((x - 0) / 255 * 255, 0, 255))`` is ``x`` for every byte
-    in float32 (a test checks all 256); ``wb`` is the input."""
+    """The analysis pass run step by step: each kernel launched, and each
+    small op run, from Python. :func:`analyze_image_kernel` says what it
+    computes; it runs this on CPU tensors and on the first call of a CUDA
+    key, and captures it on the second."""
     kinds = tuple(IndexKind.parse(k) for k in kinds)
     batched = img.dim() == 4
     frames = img if batched else img[None]
@@ -147,3 +149,89 @@ def analyze_image_kernel(
         )
     return AnalyzeResult(wb=unbatch(out.wb if with_wb else frames), indices=indices,
                          stats=stats, renders=renders)
+
+
+def static_key(device: torch.device, shape: Tuple[int, ...], dtype: torch.dtype,
+               kinds: Sequence, with_renders: bool, with_hist: bool,
+               select_onepass: Optional[bool], with_wb: bool) -> tuple:
+    """What a captured pass is fixed by, but for its launch grids: the
+    device, the frames' shape and dtype, the parsed kinds (a registered
+    custom index by its whole spec) and the four flags."""
+    return (torch.device(device), tuple(shape), dtype,
+            tuple(IndexKind.parse(k) for k in kinds), bool(with_renders), bool(with_hist),
+            bool(select_onepass), bool(with_wb))
+
+
+def launch_grids(key: tuple) -> Tuple[int, int]:
+    """The blocks per SM that the autotune table gives the hist and fused
+    launches of a pass with this static key, as the wrappers look them up
+    (hist by the pixels of all frames, fused by a chunk's of all frames,
+    under ``fused_hist`` when it counts the histogram)."""
+    dev, shape, _, kinds, _, with_hist, _, _ = key
+    b = shape[0] if len(shape) == 4 else 1
+    hw = shape[-3] * shape[-2]
+    return (autotune.blocks_per_sm("hist", b * hw, dev),
+            autotune.blocks_per_sm("fused_hist" if with_hist and kinds else "fused",
+                                   b * min(hw, CHUNK_PIXELS), dev))
+
+
+def graph_bytes_hint(key: tuple) -> int:
+    """A pass's graph's bytes before it is captured: its static input and
+    its outputs (wb, the index maps, the renders), which its pool holds
+    with little more."""
+    _, shape, _, kinds, with_renders, _, _, _ = key
+    px = math.prod(shape[:-1])
+    return px * 3 * 2 + len(kinds) * px * (4 + 3 * with_renders)
+
+
+# the pass's kernel wrappers, by the names their kernels carry in the records
+_WRAPPERS = {"hist": channel_histograms, "fused": fused_analyze, "byte_hist": byte_hist,
+             "q24_tail": q24_tail, "q24_onepass": q24_onepass}
+
+
+def _capture(key: tuple, img: torch.Tensor, body, ctx) -> graph.Graph:
+    """:func:`graph.capture` with this pass's memory estimate and its
+    kernels' launch counts."""
+    return graph.capture(key, img, body, ctx, need=graph_bytes_hint(key[0]),
+                         counts=lambda: {k: w.launches for k, w in _WRAPPERS.items()})
+
+
+# The graphs of analyze_image_kernel's CUDA calls, one per static key and grids.
+GRAPHS = graph.GraphCache(_capture, launch_grids, graph_bytes_hint)
+autotune.on_change(GRAPHS.regrid)
+
+
+def analyze_image_kernel(
+    img: torch.Tensor,
+    kinds: Sequence = tuple(k.value for k in ALL_INDICES),
+    with_renders: bool = True,
+    with_hist: bool = True,
+    select_onepass: Optional[bool] = None,
+    with_wb: bool = True,
+) -> AnalyzeResult:
+    """Kernel-backed analysis of ``(H, W, 3)`` or ``(B, H, W, 3)`` uint8
+    frames on the tensor's device. Same result as
+    ``pipeline.fused.analyze_image``; ``with_hist=False`` leaves
+    ``IndexStats.histogram`` None. ``select_onepass=True`` takes the
+    medians by the one-pass select kernel (frames of at most 1024^2
+    pixels) instead of the 3-pass select; the results are the same.
+
+    ``with_wb=False`` computes the indices on the raw bands: no
+    histogram is taken, and the fused kernel runs with the bounds
+    ``lo = 0``, ``hi = 255``, under which its white balance
+    ``floor(clip((x - 0) / 255 * 255, 0, 255))`` is ``x`` for every byte
+    in float32 (a test checks all 256); ``wb`` is the input.
+
+    A CPU tensor runs :func:`_analyze_eager`. On a CUDA tensor the first
+    call with a :func:`static_key` and :func:`launch_grids` runs
+    ``_analyze_eager`` too; every later one replays the graph of that key
+    in ``GRAPHS``, captured from ``_analyze_eager`` on the second call.
+    The result is in fresh tensors, which no later call changes. A capture
+    that fails raises :class:`rgnir_torch.kernels.graph.CaptureError`."""
+    if img.device.type != "cuda":
+        return _analyze_eager(img, kinds, with_renders, with_hist, select_onepass, with_wb)
+    key = static_key(img.device, img.shape, img.dtype, kinds, with_renders, with_hist,
+                     select_onepass, with_wb)
+    kinds = key[3]
+    return GRAPHS(key, img, lambda frames: _analyze_eager(
+        frames, kinds, with_renders, with_hist, select_onepass, with_wb))

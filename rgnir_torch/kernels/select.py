@@ -31,6 +31,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from rgnir_torch.kernels import graph
 from rgnir_torch.kernels._build import launch, library
 from rgnir_torch.ops.select import (
     SHIFTS,
@@ -294,11 +295,18 @@ _ONEPASS_TABLES: Dict[int, _Tables] = {}
 _TABLES_LOCK = threading.Lock()
 
 
-def _onepass_tables(dev: torch.device, rows: int) -> _Tables:
+def _onepass_tables(dev: torch.device, rows: int) -> Tuple[torch.Tensor, Optional[_Tables]]:
+    """The tables a launch over ``rows`` rows uses, and the device's shared
+    ``_Tables`` they belong to. While a CUDA graph is captured, the
+    graph's own tables instead (and None): a graph keeps their address, so
+    no other launch may use them."""
     lib = library("onepass")
     lib.rgnir_q24_onepass_scratch_bytes.argtypes = [_I64]
     lib.rgnir_q24_onepass_scratch_bytes.restype = _I64
     nbytes = lib.rgnir_q24_onepass_scratch_bytes(rows)
+    own = graph.scratch(("onepass", dev.index), nbytes, dev)
+    if own is not None:
+        return own, None
     stream = torch.cuda.current_stream(dev)
     tables = _ONEPASS_TABLES.get(dev.index)
     if tables is not None and tables.stream != stream:
@@ -307,7 +315,7 @@ def _onepass_tables(dev: torch.device, rows: int) -> _Tables:
         tables.stream = stream
     if tables is None or tables.buf.numel() < nbytes:
         tables = _ONEPASS_TABLES[dev.index] = _Tables(nbytes, dev, stream)
-    return tables
+    return tables.buf, tables
 
 
 def q24_onepass(
@@ -336,16 +344,17 @@ def q24_onepass(
     ss = torch.empty(b_sel, dtype=torch.float64, device=dev)
     eqmr = torch.empty(b_sel, dtype=torch.int64, device=dev)
     with _TABLES_LOCK:
-        tables = _onepass_tables(dev, min(b_sel, ONEPASS_TABLE_ROWS))
+        buf, shared = _onepass_tables(dev, min(b_sel, ONEPASS_TABLE_ROWS))
         for first in range(0, b_sel, ONEPASS_TABLE_ROWS):
             launch("onepass", "rgnir_q24_onepass",
                    (_P, _I64, _I64, _I64, _I64, _INT, _INT, _P, _P, _P, _P, _P, _P, _P),
                    (rows.data_ptr(), first, min(ONEPASS_TABLE_ROWS, b_sel - first),
                     rows.shape[1], nv, group, take, sel0.data_ptr(), rank1.data_ptr(),
-                    means.data_ptr(), tables.buf.data_ptr(), lohi.data_ptr(), ss.data_ptr(),
+                    means.data_ptr(), buf.data_ptr(), lohi.data_ptr(), ss.data_ptr(),
                     eqmr.data_ptr()), dev)
             q24_onepass.launches += 1
-        tables.event.record(tables.stream)
+        if shared is not None:
+            shared.event.record(shared.stream)
     return lohi[:, 0], lohi[:, 1], ss, eqmr
 
 

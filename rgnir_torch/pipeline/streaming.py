@@ -102,10 +102,12 @@ class StreamAnalyzer:
 
     def warmup(self) -> None:
         """Build the kernels (on CUDA) and analyse one batch of zeros, so
-        that the first real frame does not pay for either."""
+        that the first real frame does not pay for either; on CUDA twice,
+        the second capturing the graph that every full batch replays."""
         zeros = torch.zeros((self.batch,) + self.frame_shape + (3,), dtype=torch.uint8,
                             device=self.device)
-        self._step(zeros)
+        for _ in range(2 if self.device.type == "cuda" else 1):
+            self._step(zeros)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

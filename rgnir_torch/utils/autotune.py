@@ -11,7 +11,9 @@ those of a whole launch, every frame of it: both kernels share the SMs
 x ``blocks_per_sm`` blocks out among a launch's frames, so a grid's
 work per block follows the launch's pixels, not a frame's. Every launch
 looks its key up in the cache as this process first read it;
-:func:`store` and :func:`invalidate_cache` refresh it.
+:func:`store` and :func:`invalidate_cache` refresh it, and then call
+each function given to :func:`on_change` (the compiled analysis drops
+the CUDA graphs whose grids moved).
 
 byte_hist (``rgnir_byte_hist``) is not tuned: each of its blocks counts
 a fixed chunk of a row (``kElemsPerBlock``), so its grid follows from
@@ -30,7 +32,7 @@ import json
 import os
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -43,6 +45,7 @@ HOLD_CYCLES = 50_000_000
 _LOCK = threading.Lock()
 _CACHE: Optional[Dict[str, int]] = None
 _KINDS: Dict[int, str] = {}
+_LISTENERS: List[Callable[[], None]] = []
 
 
 def cache_path() -> Path:
@@ -117,6 +120,16 @@ def blocks_per_sm(kernel: str, n: int, device, given: Optional[int] = None) -> i
     return int(given)
 
 
+def on_change(fn: Callable[[], None]) -> None:
+    """Call ``fn`` after every :func:`store` and :func:`invalidate_cache`."""
+    _LISTENERS.append(fn)
+
+
+def _changed() -> None:
+    for fn in list(_LISTENERS):
+        fn()
+
+
 def store(kernel: str, n: int, kind: str, value: int) -> None:
     """Cache ``value`` for (kernel, bucket of ``n``, ``kind``) in the user
     file (re-read first, so a concurrent tune's entries are kept; the seed
@@ -131,6 +144,7 @@ def store(kernel: str, n: int, kind: str, value: int) -> None:
         tmp.write_text(json.dumps(user, indent=2, sort_keys=True))
         tmp.replace(path)
         _CACHE = _merged(user)
+    _changed()
 
 
 def invalidate_cache() -> None:
@@ -139,6 +153,7 @@ def invalidate_cache() -> None:
     global _CACHE
     with _LOCK:
         _CACHE = None
+    _changed()
 
 
 def _exact_fields(kernel: str, out):

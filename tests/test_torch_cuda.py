@@ -231,10 +231,8 @@ def test_cuda_onepass_over_table_rows_and_streams(cuda):
 @pytest.mark.parametrize("shape", [(64, 96), (2, 64, 96)])
 def test_cuda_path_matches_plain_path(cuda, shape):
     img = _frames(10, shape)
-    before = {k: w.launches for k, w in tk.WRAPPERS.items()}
-    got = analyze_image_auto(img, kinds=KINDS)
-    launched = {k for k, w in tk.WRAPPERS.items() if w.launches > before[k]}
-    assert launched == DEFAULT_PATH
+    got, _ = chip_smoke.count_launches(torch, tk.WRAPPERS, DEFAULT_PATH, "path",
+                                       lambda: analyze_image_auto(img, kinds=KINDS))
     want = analyze_image(img, kinds=KINDS)
     assert torch.equal(got.wb, want.wb)
     for k in KINDS:
@@ -250,10 +248,9 @@ def test_cuda_path_matches_plain_path(cuda, shape):
 @pytest.mark.cuda
 def test_cuda_onepass_path_matches_default_path(cuda):
     img = torch.from_numpy(_frames(13, (2, 64, 96))).to(cuda)
-    before = {k: w.launches for k, w in tk.WRAPPERS.items()}
-    got = analyze_image_kernel(img, kinds=KINDS, select_onepass=True)
-    launched = {k for k, w in tk.WRAPPERS.items() if w.launches > before[k]}
-    assert launched == ONEPASS_PATH
+    got, _ = chip_smoke.count_launches(
+        torch, tk.WRAPPERS, ONEPASS_PATH, "one-pass path",
+        lambda: analyze_image_kernel(img, kinds=KINDS, select_onepass=True))
     want = analyze_image_kernel(img, kinds=KINDS)
     for k in KINDS:
         assert torch.equal(got.stats[k].median, want.stats[k].median), k
@@ -750,3 +747,156 @@ def test_cuda_grid_refused_outside_its_range(cuda):
     img = torch.zeros(1, 8, 8, 3, dtype=torch.uint8, device=cuda)
     with pytest.raises(RuntimeError, match="CUDA error"):
         tk.channel_histograms(img, blocks_per_sm=65)
+
+
+# --- the compiled entry: a CUDA graph per static key -----------------------------
+
+REPLAY_SHAPE = (2, 256, 384)
+
+
+def _replay_cases():
+    return {
+        "a": dict(kinds=KINDS),
+        "b": dict(kinds=("NDVI",), with_hist=False),
+        "a1": dict(kinds=KINDS, select_onepass=True),
+        "9 kinds": dict(kinds=tuple(chip_smoke.many_kinds(9))),
+        "custom": dict(kinds=("NDVI", "CUDA_GRAPH_RG"), with_renders=False),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["a", "b", "a1", "9 kinds", "custom"])
+def test_cuda_replay_equals_eager(cuda, case):
+    """The first call with a key runs the eager pass; the second captures
+    it, and its replay's result equals the eager pass's on every exact
+    field; the graph holds the kernels the eager pass launched, and a third
+    call captures nothing. (A replay's launches read from the profiler:
+    ``chip_smoke.py`` phase 4j, in a process of its own; late in a long
+    one, as this suite's, the profiler misses records.)"""
+    from rgnir_torch.config import register_index
+    from rgnir_torch.kernels import pipeline as kp
+
+    register_index("CUDA_GRAPH_RG", (0, 1), coverage_threshold=0.05, cmap_name="bwr")
+    kp.GRAPHS.clear()
+    kw = _replay_cases()[case]
+    kinds = tuple(k if isinstance(k, str) else k.value for k in kw["kinds"])
+    img = torch.from_numpy(_frames(30, REPLAY_SHAPE)).to(cuda)
+    before = {k: w.launches for k, w in tk.WRAPPERS.items()}
+    want = kp._analyze_eager(img, **kw)
+    eager = {k: w.launches - before[k] for k, w in tk.WRAPPERS.items()
+             if w.launches != before[k]}
+    e0, c0 = kp.GRAPHS.eager_calls, kp.GRAPHS.captures
+    chip_smoke.check_replay(torch, case, kp.analyze_image_kernel(img, **kw), want, kinds)
+    assert (kp.GRAPHS.eager_calls, kp.GRAPHS.captures) == (e0 + 1, c0)
+    chip_smoke.check_replay(torch, case, kp.analyze_image_kernel(img, **kw), want, kinds)
+    assert kp.GRAPHS.captures == c0 + 1
+    entry = kp.GRAPHS.get(kp.GRAPHS.keys()[-1])
+    assert entry.graph_launches and entry.graph_launches == eager
+    chip_smoke.check_replay(torch, case, kp.analyze_image_kernel(img, **kw), want, kinds)
+    assert (kp.GRAPHS.eager_calls, kp.GRAPHS.captures) == (e0 + 1, c0 + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_held_result_survives_the_next_call(cuda):
+    """The next replay overwrites the graph's outputs, not a result
+    already returned; a replay on another stream waits for the last."""
+    from rgnir_torch.kernels import graph
+    from rgnir_torch.kernels import pipeline as kp
+
+    kp.GRAPHS.clear()
+    a, b = (torch.from_numpy(_frames(seed, REPLAY_SHAPE)).to(cuda) for seed in (31, 32))
+    kp.analyze_image_kernel(a, kinds=KINDS)  # the key's first call, eager
+    c0 = kp.GRAPHS.captures
+    first = kp.analyze_image_kernel(a, kinds=KINDS)
+    assert kp.GRAPHS.captures == c0 + 1
+    held = [t.clone() for t in graph.flatten(first)[0]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        second = kp.analyze_image_kernel(b, kinds=KINDS)
+    torch.cuda.current_stream().wait_stream(side)
+    third = kp.analyze_image_kernel(a, kinds=KINDS)
+    torch.cuda.synchronize()
+    assert kp.GRAPHS.captures == c0 + 1
+    for t, h in zip(graph.flatten(first)[0], held):
+        assert torch.equal(t, h)
+    chip_smoke.check_replay(torch, "second", second, kp._analyze_eager(b, kinds=KINDS), KINDS)
+    chip_smoke.check_replay(torch, "third", third, first, KINDS)
+
+
+@pytest.mark.cuda
+def test_cuda_capture_failure_raises_without_fallback(cuda, monkeypatch):
+    """A pass that reads a device value on the host (illegal while a
+    stream is captured) runs on its key's first call, then fails to
+    capture on every later one: each raises with the CUDA error, caches
+    nothing and returns no eager result."""
+    from rgnir_torch.kernels import graph
+    from rgnir_torch.kernels import pipeline as kp
+
+    kp.GRAPHS.clear()
+    real = kp._analyze_eager
+    calls = []
+
+    def syncing(img, *args, **kw):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        res = real(img, *args, **kw)
+        float(res.stats["NDVI"].mean.sum())  # a host read of a device value
+        return res
+
+    monkeypatch.setattr(kp, "_analyze_eager", syncing)
+    img = torch.from_numpy(_frames(33, (1, 72, 88))).to(cuda)
+    first = kp.analyze_image_kernel(img, kinds=("NDVI",))
+    for _ in range(2):
+        with pytest.raises(graph.CaptureError, match="capturing the analysis"):
+            kp.analyze_image_kernel(img, kinds=("NDVI",))
+    assert calls == [False, True, True] and len(kp.GRAPHS) == 0
+    monkeypatch.setattr(kp, "_analyze_eager", real)
+    got = kp.analyze_image_kernel(img, kinds=("NDVI",))  # the process goes on
+    assert len(kp.GRAPHS) == 1
+    want = real(img, kinds=("NDVI",))
+    chip_smoke.check_replay(torch, "after a failed capture", got, want, ("NDVI",))
+    chip_smoke.check_replay(torch, "the first call", first, want, ("NDVI",))
+
+
+@pytest.mark.cuda
+def test_cuda_stream_and_batch_equal_eager(cuda, tmp_path, monkeypatch):
+    """The stream's results and the batch's output files through replays
+    equal the same runs through the eager pass."""
+    from rgnir_torch.config import LoaderConfig
+    from rgnir_torch.kernels import pipeline as kp
+    from rgnir_torch.pipeline import batch as tbatch
+    from rgnir_torch.pipeline import dispatch
+    from rgnir_torch.pipeline.streaming import StreamAnalyzer
+
+    frames = [_frames(40 + i, (96, 128)) for i in range(7)]
+    src = _batch_dir(tmp_path / "in")
+
+    def run(out):
+        analyzer = StreamAnalyzer(frame_shape=(96, 128), kinds=KINDS, batch=3,
+                                  with_renders=True, with_hist=True)
+        results = [r for f in frames for r in [analyzer.submit(f)] if r is not None]
+        results += list(analyzer.drain())
+        tbatch.batch_process(src, out, save_wb=True, indices=KINDS,
+                             loader_cfg=LoaderConfig(batch_size=2))
+        return results
+
+    replayed = run(tmp_path / "replay")
+    monkeypatch.setattr(dispatch, "analyze_image_kernel", kp._analyze_eager)
+    eager = run(tmp_path / "eager")
+    assert [r.frame_id for r in replayed] == [r.frame_id for r in eager] == list(range(7))
+    for r, e in zip(replayed, eager):
+        for k in KINDS:
+            assert torch.equal(r.renders[k], e.renders[k]), (r.frame_id, k)
+            g, w = r.stats[k], e.stats[k]
+            for f in ("min", "max", "median", "coverage_pct", "histogram", "n"):
+                assert torch.equal(getattr(g, f), getattr(w, f)), (r.frame_id, k, f)
+            assert float((g.mean - w.mean).abs()) <= MEAN_ATOL
+            assert float((g.std ** 2 - w.std ** 2).abs()) <= VAR_ATOL
+    files = sorted(p.relative_to(tmp_path / "eager") for p in (tmp_path / "eager").rglob("*.*")
+                   if p.name != ".manifest.jsonl")
+    assert len(files) == 7 * 4
+    assert files == sorted(p.relative_to(tmp_path / "replay")
+                           for p in (tmp_path / "replay").rglob("*.*")
+                           if p.name != ".manifest.jsonl")
+    for rel in files:
+        assert (tmp_path / "replay" / rel).read_bytes() == (tmp_path / "eager" / rel).read_bytes()

@@ -313,7 +313,7 @@ def test_port_imports_no_jax():
         "             'parallel.change', 'parallel.multihost', 'store', 'store.base',\n"
         "             'store.fs', 'store.mongo', 'testing.fake_mongo', 'testing.fake_streamlit',\n"
         "             'app', 'app.streamlit_app', 'cli', 'utils.microbench', 'utils.autotune',\n"
-        "             'utils.compile_cache', 'utils.debugging'):\n"
+        "             'utils.compile_cache', 'utils.debugging', 'kernels.graph'):\n"
         "    assert 'rgnir_torch.' + name in names, name\n"
         "print(len(names))\n"
     )
