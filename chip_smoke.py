@@ -1429,6 +1429,7 @@ def big_frame_checks(torch, wrappers, smi):
     # with its peak device memory above what was allocated before it
     from rgnir_torch.kernels import pipeline as kp
     from rgnir_torch.pipeline.dispatch import analyze_image_auto
+    from rgnir_torch.utils import profiling
 
     def peak_call(fn):
         torch.cuda.synchronize()
@@ -1441,8 +1442,10 @@ def big_frame_checks(torch, wrappers, smi):
                 torch.cuda.max_memory_allocated() - base)
 
     c0 = kp.GRAPHS.captures
-    calls = [peak_call(lambda: analyze_image_auto(img, kinds=("NDVI",), device="cuda"))
-             for _ in range(3)]
+    with profiling.recording() as rec:
+        calls = [peak_call(lambda: analyze_image_auto(img, kinds=("NDVI",), device="cuda"))
+                 for _ in range(3)]
+    capture_ms = rec.named("graph.capture")[-1].seconds * 1e3
     require(kp.GRAPHS.captures == c0 + 1, f"analyze_image_auto {BIG_FRAME}: one capture")
     entry = kp.GRAPHS.get(kp.GRAPHS.keys()[-1])
     require(entry.graph_launches.get("fused") == chunks,
@@ -1453,7 +1456,7 @@ def big_frame_checks(torch, wrappers, smi):
     log(f"analyze_image_auto {BIG_FRAME}, NDVI, renders and histogram: replays equal the eager "
         f"first call; launches a replay {entry.graph_launches}; ms and peak device bytes above "
         f"the frame: first call (eager) {calls[0][1]:.1f} ms, {calls[0][2]}; second (capture "
-        f"{entry.capture_s * 1e3:.1f} ms, replay) {calls[1][1]:.1f} ms, {calls[1][2]}; third "
+        f"{capture_ms:.1f} ms, replay) {calls[1][1]:.1f} ms, {calls[1][2]}; third "
         f"(replay) {calls[2][1]:.1f} ms, {calls[2][2]}; the graph's pool {entry.pool_bytes} "
         f"bytes, the key {entry.nbytes} bytes (limit {kp.graph.MAX_GRAPH_BYTES}) [{smi}]")
     del calls, entry, img, mosaic
@@ -3451,6 +3454,7 @@ def compiled_case(torch, timer, smi, i, label, shape, kw):
     """One shape of phase 4j; returns its log line."""
     from rgnir_torch.kernels import graph
     from rgnir_torch.kernels import pipeline as kp
+    from rgnir_torch.utils import profiling
 
     cache = kp.GRAPHS
     kinds = tuple(k if isinstance(k, str) else k.value for k in kw["kinds"])
@@ -3486,7 +3490,9 @@ def compiled_case(torch, timer, smi, i, label, shape, kw):
     require((cache.eager_calls, cache.captures) == (e0 + 1, c0),
             f"compiled {label}: the key's first call runs the eager pass")
     check_replay(torch, f"compiled {label} first call", first, want, kinds)
-    second, second_wall, second_peak = peak_call(replay)
+    with profiling.recording() as rec:
+        second, second_wall, second_peak = peak_call(replay)
+    capture_ms = rec.named("graph.capture")[-1].seconds * 1e3
     require(cache.captures == c0 + 1, f"compiled {label}: the second call captures")
     entry = cache.get(cache.keys()[-1])
     sets = entry.graph_launches
@@ -3519,7 +3525,7 @@ def compiled_case(torch, timer, smi, i, label, shape, kw):
             f"{busy}; the graph alone {graph_ms:.4f} ms on the device; output copy "
             f"{copy_ms:.4f} ms on the device, {copy_wall:.4f} ms wall, {entry.outputs.nbytes} "
             f"bytes; first call (eager) {first_wall:.1f} ms, peak {first_peak} bytes above the "
-            f"inputs; second call {second_wall:.1f} ms (capture {entry.capture_s * 1e3:.1f} ms "
+            f"inputs; second call {second_wall:.1f} ms (capture {capture_ms:.1f} ms "
             f"of it), peak {second_peak} bytes; pool {entry.pool_bytes} bytes, the key "
             f"{entry.nbytes} bytes [{smi}]")
 

@@ -33,10 +33,11 @@ import collections
 import contextlib
 import dataclasses
 import threading
-import time
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
+
+from rgnir_torch.utils import profiling
 
 # Device bytes the cached graphs may keep together (pools, static inputs).
 MAX_GRAPH_BYTES = 16 << 30
@@ -245,13 +246,12 @@ class Graph:
     """
 
     def __init__(self, graph, static_in: torch.Tensor, outputs: Outputs, ctx: _Context,
-                 pool_bytes: int, capture_s: float) -> None:
+                 pool_bytes: int) -> None:
         self.graph = graph
         self.static_in = static_in
         self.outputs = outputs
         self.ctx = ctx
         self.pool_bytes = pool_bytes
-        self.capture_s = capture_s
         self.nbytes = pool_bytes + static_in.numel() * static_in.element_size()
         self.done = torch.cuda.Event()
         self.stream = None
@@ -263,9 +263,12 @@ class Graph:
             if self.stream is not None and self.stream != stream:
                 stream.wait_event(self.done)
             self.stream = stream
-            self.static_in.copy_(img)
-            self.graph.replay()
-            out = self.outputs.copy()
+            with profiling.span("graph.copy_in"):
+                self.static_in.copy_(img)
+            with profiling.span("graph.launch"):
+                self.graph.replay()
+            with profiling.span("graph.copy_out"):
+                out = self.outputs.copy()
             self.done.record(stream)
         return out
 
@@ -296,7 +299,6 @@ def capture(key: Hashable, img: torch.Tensor, body: Callable[[torch.Tensor], Any
     ones (``graph_launches``, which each replay runs and the capture does
     not). Raises :class:`CaptureError` with the CUDA error if the capture
     fails."""
-    t0 = time.perf_counter()
     dev = img.device
     with torch.cuda.device(dev):
         current = torch.cuda.current_stream(dev)
@@ -326,7 +328,7 @@ def capture(key: Hashable, img: torch.Tensor, body: Callable[[torch.Tensor], Any
         for buf in ctx.scratch.values():
             buf.zero_()
         pool = _pool_bytes(g, dev)
-    entry = Graph(g, static_in, outputs, ctx, pool, time.perf_counter() - t0)
+    entry = Graph(g, static_in, outputs, ctx, pool)
     entry.graph_launches = captured
     return entry
 
@@ -394,13 +396,14 @@ class GraphCache:
         on a later one, its graph replayed on ``img``, captured first if
         there is none."""
         key = self.key(base)
+        label = f"{hash(key) & 0xFFFFFFFF:08x}" if profiling.is_recording() else None
         with self._lock:
             entry = self._entries.get(key)
             if entry is None:
                 ctx = self._seen.get(key)
                 if ctx is None:  # a refused input raises here, and is not remembered
                     ctx = _Context()
-                    with _within(ctx):
+                    with _within(ctx), profiling.span("graph.eager", key=label):
                         out = body(img)
                     self._seen[key] = ctx
                     while len(self._seen) > MAX_SEEN_KEYS:
@@ -408,7 +411,8 @@ class GraphCache:
                     self.eager_calls += 1
                     return out
                 self._shrink(self.size_hint(base))
-                entry = self.capture(key, img, body, ctx)
+                with profiling.span("graph.capture", key=label):
+                    entry = self.capture(key, img, body, ctx)
                 del self._seen[key]
                 self.captures += 1
                 _add(self.captured_launches, getattr(entry, "graph_launches", {}))
@@ -417,7 +421,8 @@ class GraphCache:
                     self._shrink()
             else:
                 self._entries.move_to_end(key)
-            out = entry.replay(img)
+            with profiling.span("graph.replay", key=label):
+                out = entry.replay(img)
             self.replays += 1
             _add(self.replayed_launches, getattr(entry, "graph_launches", {}))
             if key not in self._entries:  # larger than the limit alone

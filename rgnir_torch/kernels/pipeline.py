@@ -34,7 +34,7 @@ from rgnir_torch.ops.indices import band_indices
 from rgnir_torch.ops.stats import IndexStats
 from rgnir_torch.ops.wb import wb_bounds_from_histogram
 from rgnir_torch.pipeline.fused import AnalyzeResult
-from rgnir_torch.utils import autotune
+from rgnir_torch.utils import autotune, profiling
 
 
 def _median_plan(kinds: Tuple[IndexKind, ...]) -> Optional[Tuple[int, tuple]]:
@@ -228,10 +228,11 @@ def analyze_image_kernel(
     in ``GRAPHS``, captured from ``_analyze_eager`` on the second call.
     The result is in fresh tensors, which no later call changes. A capture
     that fails raises :class:`rgnir_torch.kernels.graph.CaptureError`."""
-    if img.device.type != "cuda":
-        return _analyze_eager(img, kinds, with_renders, with_hist, select_onepass, with_wb)
-    key = static_key(img.device, img.shape, img.dtype, kinds, with_renders, with_hist,
-                     select_onepass, with_wb)
-    kinds = key[3]
-    return GRAPHS(key, img, lambda frames: _analyze_eager(
-        frames, kinds, with_renders, with_hist, select_onepass, with_wb))
+    with profiling.span("analyze"):
+        if img.device.type != "cuda":
+            return _analyze_eager(img, kinds, with_renders, with_hist, select_onepass, with_wb)
+        key = static_key(img.device, img.shape, img.dtype, kinds, with_renders, with_hist,
+                         select_onepass, with_wb)
+        kinds = key[3]
+        return GRAPHS(key, img, lambda frames: _analyze_eager(
+            frames, kinds, with_renders, with_hist, select_onepass, with_wb))

@@ -28,6 +28,7 @@ from rgnir_torch.config import ALL_INDICES, IndexKind
 from rgnir_torch.ops.stats import IndexStats
 from rgnir_torch.pipeline.dispatch import analyze_image_auto
 from rgnir_torch.pipeline.fused import resolve_device
+from rgnir_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -62,6 +63,15 @@ class StreamAnalyzer:
 
     ``device`` is CUDA unless the caller names another; without CUDA the
     default raises.
+
+    Inside ``rgnir_torch.utils.profiling.recording()`` it records the
+    spans ``stream.submit`` (with ``stream.slot_wait``, ``stream.copy``
+    and ``stream.dispatch``), counts ``stream.partial_dispatches``, and
+    records per frame, with its ``frame_id``, the intervals ``stream.fill``
+    (from the frame's staging to its batch's dispatch) and
+    ``stream.held`` (from that dispatch to the result handed out by
+    ``submit``, ``pop_ready`` or ``drain``). Outside it, no per-frame time
+    is taken.
     """
 
     def __init__(
@@ -94,6 +104,10 @@ class StreamAnalyzer:
         self._n_staged = 0   # frames in it
         self._inflight: Deque[FrameResult] = collections.deque()
         self._next_id = 0
+        # while recording: each staged row's perf_counter_ns (0: none), and
+        # each dispatched frame's dispatch time until its result is handed out
+        self._staged_ns = [0] * self.batch
+        self._dispatched_ns: Dict[int, int] = {}
 
     def _step(self, frames: torch.Tensor):
         res = analyze_image_auto(frames, kinds=self.kinds, with_renders=self.with_renders,
@@ -115,7 +129,8 @@ class StreamAnalyzer:
         """The row of the current slot that the next frame fills. The
         slot's first frame waits until its last copy to the device ended."""
         if self._n_staged == 0 and self._copied[self._slot] is not None:
-            self._copied[self._slot].synchronize()
+            with profiling.span("stream.slot_wait"):
+                self._copied[self._slot].synchronize()
             self._copied[self._slot] = None
         return self._slot_np[self._slot][self._n_staged]
 
@@ -123,17 +138,24 @@ class StreamAnalyzer:
         """Analyse the staged frames (those of a partial batch too) and
         queue one result per frame."""
         n = self._n_staged
+        t_dispatch = time.perf_counter_ns() if profiling.is_recording() else 0
         block = self._slots[self._slot][:n]
-        if self.device.type == "cuda":
-            block = block.to(self.device, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-            self._copied[self._slot] = event
-        stats, renders = self._step(block)
+        with profiling.span("stream.dispatch"):
+            if self.device.type == "cuda":
+                block = block.to(self.device, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+                self._copied[self._slot] = event
+            stats, renders = self._step(block)
         self.dispatches += 1
         self._slot = (self._slot + 1) % len(self._slots)
         self._n_staged = 0
         for j in range(n):
+            if t_dispatch:
+                if self._staged_ns[j]:
+                    profiling.interval("stream.fill", self._staged_ns[j], t_dispatch,
+                                       frame_id=self._next_id)
+                self._dispatched_ns[self._next_id] = t_dispatch
             self._inflight.append(FrameResult(
                 self._next_id,
                 {k: _frame_stats(s, j) for k, s in stats.items()},
@@ -141,14 +163,25 @@ class StreamAnalyzer:
             ))
             self._next_id += 1
 
+    def _hand_out(self) -> FrameResult:
+        """The oldest result, leaving the queue; its ``stream.held`` ends here."""
+        r = self._inflight.popleft()
+        if self._dispatched_ns:
+            t = self._dispatched_ns.pop(r.frame_id, None)
+            if t is not None:
+                profiling.interval("stream.held", t, time.perf_counter_ns(),
+                                   frame_id=r.frame_id)
+        return r
+
     def _commit(self) -> Optional[FrameResult]:
         """Count the frame just staged; dispatch a full slot; return the
         oldest result once more than ``depth`` batches are in flight."""
+        self._staged_ns[self._n_staged] = time.perf_counter_ns() if profiling.is_recording() else 0
         self._n_staged += 1
         if self._n_staged == self.batch:
             self._dispatch_staged()
         if len(self._inflight) > self.depth * self.batch:
-            return self._inflight.popleft()
+            return self._hand_out()
         return None
 
     def submit(self, frame: np.ndarray) -> Optional[FrameResult]:
@@ -158,8 +191,11 @@ class StreamAnalyzer:
             raise ValueError(f"frame shape {frame.shape} != {self.frame_shape + (3,)}")
         if frame.dtype != np.uint8:
             raise TypeError(f"frame dtype {frame.dtype} != uint8")
-        self._stage_row()[...] = frame
-        return self._commit()
+        with profiling.span("stream.submit"):
+            row = self._stage_row()
+            with profiling.span("stream.copy"):
+                row[...] = frame
+            return self._commit()
 
     def flush_partial(self) -> None:
         """Dispatch a partially filled batch now (the latency policy's
@@ -168,19 +204,20 @@ class StreamAnalyzer:
         frame ids go on from the last real frame, as the JAX package's
         do after it drops its padding frames."""
         if self._n_staged:
+            profiling.count("stream.partial_dispatches")
             self._dispatch_staged()
 
     def pop_ready(self):
         """Yield the results beyond the pipelining depth (never waits on
         the device: results are read lazily)."""
         while len(self._inflight) > self.depth * self.batch:
-            yield self._inflight.popleft()
+            yield self._hand_out()
 
     def drain(self):
         """Flush a partial batch, then yield every remaining result."""
         self.flush_partial()
         while self._inflight:
-            yield self._inflight.popleft()
+            yield self._hand_out()
 
     def run_from_rings(
         self,

@@ -17,10 +17,11 @@ histogram; the three kinds again with the one-pass select,
   (``self_device_time_total`` of the device-side events over the window,
   divided by the calls; the host-side operator rows, which repeat their
   kernels' time, are left out);
-- the device's busy and idle share of the window: the summed kernel
-  time over the wall time. Kernels do not overlap on one stream, so the
-  sum is the busy time. The profiler slows the host, so the idle share
-  of the profiled window overstates an unprofiled call's.
+- the device's busy and idle share of the window: the union of the
+  device records' intervals (kernels, copies, memsets) over the wall
+  time, so that a copy that overlaps a kernel counts once
+  (``busy_seconds``). The profiler slows the host, so the idle share of
+  the profiled window overstates an unprofiled call's.
 
 ``--mosaic SIDE`` profiles the same way the sharded mosaic's kernel body
 (``parallel.analyze_mosaic(impl="kernel")``, the three kinds with
@@ -83,6 +84,19 @@ CONFIGS = (  # label, kinds, with_hist, select_onepass
     ("headline: NDVI, renders, no histogram", ("NDVI",), False, None),
     ("three kinds, renders, histogram, one-pass select", ("NDVI", "GNDVI", "NDWI"), True, True),
 )
+
+
+def busy_seconds(events) -> float:
+    """Seconds in which some device record ran in a profiler's ``events``:
+    the union of the intervals of every kernel, memcpy and memset
+    (``portbench.core.trace.union``), not the sum of their durations."""
+    from torch.autograd import DeviceType
+
+    from portbench.core.trace import union
+
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    return sum(b - a for a, b in union(spans)) / 1e6
 
 
 def time_onepass(torch, cs, shape):
@@ -237,7 +251,7 @@ def profile_batch(torch, cs, smi, calls, trace_path):
                        for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                       reverse=True)
-        busy = sum(r[0] for r in rows)
+        busy = busy_seconds(prof.events())
         print(f"\nbatch run under torch.profiler: wall {wall:.3f} s; device busy {busy:.4f} s "
               f"({busy / wall:.2%}), idle {1 - busy / wall:.2%}", flush=True)
         for secs, count, name in rows[:12]:
@@ -282,7 +296,9 @@ def profile_batch(torch, cs, smi, calls, trace_path):
 
 def profile_call(torch, label, call, mpix, calls, trace_path):
     """Wall time per call, then the device time by kernel name and the
-    device's busy share over a profiled window of ``calls`` calls."""
+    device's busy share over a profiled window of ``calls`` calls; returns
+    the rows (ms per call, launches per call, name) and the busy ms per
+    call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -308,12 +324,12 @@ def profile_call(torch, label, call, mpix, calls, trace_path):
         if e.device_type == DeviceType.CUDA and dev_us > 0:
             rows.append((dev_us / calls / 1e3, e.count // calls, e.key))
     rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
+    busy_ms = busy_seconds(prof.events()) * 1e3 / calls
     print(f"\n{label}: {wall_ms:.4f} ms per call, {mpix / wall_ms * 1e3:.1f} MPix/s "
           f"(host clock, {calls} calls)", flush=True)
     if busy_ms == 0:
         print("  device time: not measured (the profiler saw no device time)")
-        return rows
+        return rows, busy_ms
     per_call_window = window_ms / calls
     print(f"  profiled window {per_call_window:.4f} ms per call; device busy "
           f"{busy_ms:.4f} ms ({busy_ms / per_call_window:.1%}), idle "
@@ -321,7 +337,7 @@ def profile_call(torch, label, call, mpix, calls, trace_path):
           f"wall time, idle {1 - busy_ms / wall_ms:.1%}")
     for ms, count, name in rows[:20]:
         print(f"  {ms:9.4f} ms  x{count:<3d} {name[:100]}")
-    return rows
+    return rows, busy_ms
 
 
 def profile_flows(torch, cs, calls, out_dir):
@@ -356,14 +372,13 @@ def profile_flows(torch, cs, calls, out_dir):
          sum(a.shape[0] * a.shape[1] for _, a in images) / 1e6),
     ]
     for n, (label, call, mpix) in enumerate(flows):
-        rows = profile_call(torch, label, call, mpix, calls,
-                            os.path.join(out_dir, f"torch_flow_trace_{n}.json"))
+        rows, busy = profile_call(torch, label, call, mpix, calls,
+                                  os.path.join(out_dir, f"torch_flow_trace_{n}.json"))
         by = {}
         for ms, _, name in rows:
             by[cs.kernel_class(name)] = by.get(cs.kernel_class(name), 0.0) + ms
-        busy = sum(by.values())
         if busy:
-            print("  by class: " + ", ".join(
+            print(f"  by class, of {busy:.4f} ms busy: " + ", ".join(
                 f"{k} {v:.4f} ms ({v / busy:.1%})" for k, v in
                 sorted(by.items(), key=lambda kv: -kv[1])), flush=True)
 
