@@ -6,12 +6,15 @@ frames, three indices and per-frame statistics).
 ``(batch, H, W, 3)`` bytes, and a full slot goes to the device with one
 asynchronous copy and one call of
 :func:`rgnir_torch.pipeline.dispatch.analyze_image_auto`. ``submit``
-returns at once; results come out ``depth`` batches behind, so the host
-stages the next frames while the device works. Each result holds
-per-frame views of the batch's statistics on the device, read when the
-caller reads them. ``run_from_rings`` and ``run_from_ring`` pop frames
-from shared-memory rings (``rgnir_torch.native.FrameRing``) straight
-into the staging slot. Counterpart: ``rgnir_tpu/pipeline/streaming.py``.
+returns at once, so the host stages the next frames while the device
+works; it returns results ``depth`` batches behind, and ``pop_ready``
+hands each batch's results out as soon as the device has finished that
+batch (a CUDA event recorded after its pass, asked without waiting).
+Each result holds per-frame views of the batch's statistics on the
+device, read when the caller reads them. ``run_from_rings`` and
+``run_from_ring`` pop frames from shared-memory rings
+(``rgnir_torch.native.FrameRing``) straight into the staging slot.
+Counterpart: ``rgnir_tpu/pipeline/streaming.py``.
 """
 
 from __future__ import annotations
@@ -54,6 +57,15 @@ class StreamAnalyzer:
     granularity, one ``FrameResult`` per frame. A frame waits for its
     batch to fill, so keep ``batch`` <= streams x fps x latency budget.
 
+    Hand-out: results leave in frame order. ``submit`` returns the
+    oldest result once more than ``depth`` batches are in flight (the
+    JAX package's rule); ``pop_ready`` and the ring loops also hand out
+    the oldest results whose batch has finished on the device, as a CUDA
+    event recorded after the batch's pass says (``Event.query()``, which
+    never waits), and never a later batch's result ahead of an earlier
+    one's. On the CPU the step is synchronous, so a dispatched batch has
+    finished.
+
     Staging: ``depth + 1`` slots of ``(batch, H, W, 3)`` uint8, pinned
     when the device is CUDA, allocated once. A full slot goes to the
     device with ``non_blocking=True`` and records a CUDA event; filling
@@ -70,8 +82,10 @@ class StreamAnalyzer:
     records per frame, with its ``frame_id``, the intervals ``stream.fill``
     (from the frame's staging to its batch's dispatch) and
     ``stream.held`` (from that dispatch to the result handed out by
-    ``submit``, ``pop_ready`` or ``drain``). Outside it, no per-frame time
-    is taken.
+    ``submit``, ``pop_ready`` or ``drain``), and counts
+    ``stream.ready_handouts``, the results handed out because their
+    batch had finished that the ``depth`` rule would still have held.
+    Outside it, no per-frame time is taken.
     """
 
     def __init__(
@@ -102,7 +116,9 @@ class StreamAnalyzer:
         self._copied = [None] * len(self._slots)  # the CUDA event of each slot's copy
         self._slot = 0       # the slot being filled
         self._n_staged = 0   # frames in it
-        self._inflight: Deque[FrameResult] = collections.deque()
+        # each dispatched frame's result beside its batch's finish marker
+        self._inflight: Deque[Tuple[FrameResult, Optional[torch.cuda.Event]]] = \
+            collections.deque()
         self._next_id = 0
         # while recording: each staged row's perf_counter_ns (0: none), and
         # each dispatched frame's dispatch time until its result is handed out
@@ -147,6 +163,7 @@ class StreamAnalyzer:
                 event.record(torch.cuda.current_stream(self.device))
                 self._copied[self._slot] = event
             stats, renders = self._step(block)
+            finished = self._finish_marker()
         self.dispatches += 1
         self._slot = (self._slot + 1) % len(self._slots)
         self._n_staged = 0
@@ -156,16 +173,26 @@ class StreamAnalyzer:
                     profiling.interval("stream.fill", self._staged_ns[j], t_dispatch,
                                        frame_id=self._next_id)
                 self._dispatched_ns[self._next_id] = t_dispatch
-            self._inflight.append(FrameResult(
+            self._inflight.append((FrameResult(
                 self._next_id,
                 {k: _frame_stats(s, j) for k, s in stats.items()},
                 {k: v[j] for k, v in renders.items()} if self.with_renders else None,
-            ))
+            ), finished))
             self._next_id += 1
+
+    def _finish_marker(self) -> Optional[torch.cuda.Event]:
+        """What says that the batch just enqueued has finished: a CUDA
+        event recorded after its pass on the current stream, or None where
+        the step is synchronous (the batch has finished already)."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
 
     def _hand_out(self) -> FrameResult:
         """The oldest result, leaving the queue; its ``stream.held`` ends here."""
-        r = self._inflight.popleft()
+        r, _ = self._inflight.popleft()
         if self._dispatched_ns:
             t = self._dispatched_ns.pop(r.frame_id, None)
             if t is not None:
@@ -173,16 +200,12 @@ class StreamAnalyzer:
                                    frame_id=r.frame_id)
         return r
 
-    def _commit(self) -> Optional[FrameResult]:
-        """Count the frame just staged; dispatch a full slot; return the
-        oldest result once more than ``depth`` batches are in flight."""
+    def _commit(self) -> None:
+        """Count the frame just staged; dispatch a full slot."""
         self._staged_ns[self._n_staged] = time.perf_counter_ns() if profiling.is_recording() else 0
         self._n_staged += 1
         if self._n_staged == self.batch:
             self._dispatch_staged()
-        if len(self._inflight) > self.depth * self.batch:
-            return self._hand_out()
-        return None
 
     def submit(self, frame: np.ndarray) -> Optional[FrameResult]:
         """Stage a ``frame_shape + (3,)`` uint8 frame; returns the oldest
@@ -195,7 +218,10 @@ class StreamAnalyzer:
             row = self._stage_row()
             with profiling.span("stream.copy"):
                 row[...] = frame
-            return self._commit()
+            self._commit()
+            if len(self._inflight) > self.depth * self.batch:
+                return self._hand_out()
+            return None
 
     def flush_partial(self) -> None:
         """Dispatch a partially filled batch now (the latency policy's
@@ -208,9 +234,15 @@ class StreamAnalyzer:
             self._dispatch_staged()
 
     def pop_ready(self):
-        """Yield the results beyond the pipelining depth (never waits on
-        the device: results are read lazily)."""
-        while len(self._inflight) > self.depth * self.batch:
+        """Yield, oldest first, the results beyond the pipelining depth and
+        those whose batch has finished on the device; stop at the first
+        result that is neither. Never waits on the device."""
+        while self._inflight:
+            if len(self._inflight) <= self.depth * self.batch:
+                finished = self._inflight[0][1]
+                if finished is not None and not finished.query():
+                    return
+                profiling.count("stream.ready_handouts")
             yield self._hand_out()
 
     def drain(self):
@@ -239,7 +271,9 @@ class StreamAnalyzer:
             order);
           - latency: a partial batch that has waited longer than
             ``max_latency_s`` while no ring had a frame is dispatched
-            rather than held until the batch fills;
+            rather than held until the batch fills, and after each frame
+            and each idle sweep the results ``pop_ready`` hands out are
+            yielded;
           - end of stream: a ring retires after its producer's
             ``finish()`` is seen and one more pop finds it empty (the
             ring's release/acquire ordering means no frame is missed).
@@ -278,11 +312,11 @@ class StreamAnalyzer:
                 consumed += 1
                 if staged_since is None:
                     staged_since = time.monotonic()
-                result = self._commit()
+                self._commit()
                 if not self._n_staged:
                     staged_since = None
-                if result is not None:
-                    yield route(result)
+                for r in self.pop_ready():
+                    yield route(r)
                 if max_frames is not None and consumed >= max_frames:
                     break
             if not progress:
@@ -290,19 +324,20 @@ class StreamAnalyzer:
                         and time.monotonic() - staged_since > max_latency_s):
                     self.flush_partial()
                     staged_since = None
-                    for r in self.pop_ready():
-                        yield route(r)
                 elif not all(done):
                     time.sleep(idle_sleep_s)
+                for r in self.pop_ready():
+                    yield route(r)
         for r in self.drain():
             yield route(r)
 
     def run_from_ring(self, ring, max_frames: Optional[int] = None,
                       idle_sleep_s: float = 0.0005):
-        """Consume one ring, yielding results as the pipeline produces
-        them. Stops after ``max_frames`` frames, or, with
-        ``max_frames=None``, when the producer has called ``finish()``
-        and one more pop finds the ring empty."""
+        """Consume one ring, yielding results as ``pop_ready`` hands them
+        out, after each frame and each empty pop. Stops after
+        ``max_frames`` frames, or, with ``max_frames=None``, when the
+        producer has called ``finish()`` and one more pop finds the ring
+        empty."""
         consumed = 0
         eof_seen = False
         while max_frames is None or consumed < max_frames:
@@ -313,10 +348,10 @@ class StreamAnalyzer:
                     eof_seen = True  # frames pushed before finish() come first
                     continue
                 time.sleep(idle_sleep_s)
+                yield from self.pop_ready()
                 continue
             eof_seen = False
             consumed += 1
-            result = self._commit()
-            if result is not None:
-                yield result
+            self._commit()
+            yield from self.pop_ready()
         yield from self.drain()

@@ -400,6 +400,70 @@ def test_cuda_stream_rings_match_plain(cuda):
     chip_smoke.check_stream_results(torch, "stream", got, KINDS)
 
 
+@pytest.mark.cuda
+def test_cuda_paced_stream_hands_out_finished_batches(cuda):
+    """1080p frames at 300 frames/s for about 2 s into a batch-8, depth-2
+    analyzer, ``pop_ready`` after each ``submit`` and its results read
+    to the host as they come: every result handed out before the depth
+    rule would have its batch's event complete at that moment, and
+    ``stream.ready_handouts`` counts exactly those, nearly every frame
+    that ``drain`` does not hand out; every frame's statistics equal the
+    plain path's; ``stream.held`` p95 is under 10 ms."""
+    from rgnir_torch.pipeline.streaming import StreamAnalyzer
+    from rgnir_torch.utils import profiling
+
+    fps, n_frames, pool_size = 300, 600, 16
+    pool = [chip_smoke.stream_frame(0, seq) for seq in range(pool_size)]
+    ref = {}
+    for i in range(0, pool_size, 8):
+        stats = analyze_image(np.stack(pool[i:i + 8]), kinds=KINDS, with_renders=False,
+                              with_hist=False, device="cuda").stats
+        for j in range(8):
+            ref[i + j] = {k: type(r)(**{f: None if getattr(r, f) is None else getattr(r, f)[j]
+                                        for f in r.__dataclass_fields__})
+                          for k, r in stats.items()}
+    an = StreamAnalyzer(frame_shape=chip_smoke.STREAM_SHAPE, kinds=KINDS, batch=8, depth=2)
+    an.warmup()
+    limit = an.depth * an.batch
+    got, early = [], 0
+
+    def read(ready):
+        if ready:
+            torch.stack([r.stats[k].mean for r in ready for k in KINDS]).cpu()
+            got.extend(ready)
+
+    with profiling.recording() as rec:
+        start = time.perf_counter()
+        for g in range(n_frames):
+            wait = start + g / fps - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            r = an.submit(pool[g % pool_size])
+            read([r] if r is not None else [])
+            finished = [ev for _, ev in an._inflight]
+            beyond = max(0, len(finished) - limit)
+            ready = []
+            for i, res in enumerate(an.pop_ready()):
+                if i >= beyond:
+                    assert finished[i].query(), f"frame {res.frame_id} left unfinished"
+                    early += 1
+                ready.append(res)
+            read(ready)
+        n_drained = len(an._inflight) + an._n_staged
+        read(list(an.drain()))
+    assert [r.frame_id for r in got] == list(range(n_frames))
+    assert rec.counts.get("stream.ready_handouts", 0) == early
+    assert early >= 0.9 * (n_frames - n_drained), (early, n_drained)
+    for res in got:
+        for k in KINDS:
+            chip_smoke.check_stats(torch, f"paced frame {res.frame_id} {k}", res.stats[k],
+                                   ref[res.frame_id % pool_size][k], with_hist=False)
+    held = sorted(s.seconds for s in rec.named("stream.held"))
+    assert len(held) == n_frames
+    p95 = held[int(0.95 * (len(held) - 1))]
+    assert p95 < 0.010, f"stream.held p95 {p95 * 1e3:.2f} ms"
+
+
 def _batch_dir(root):
     """Five PNG frames of one shape (two full batches of 2 back to back
     and a remainder of 1), two JPEG frames of another and a corrupt file."""

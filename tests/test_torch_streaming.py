@@ -213,3 +213,151 @@ def test_frame_results_are_views_of_the_batch():
         for field in ("mean", "median", "std", "min", "max", "coverage_pct", "n"):
             assert getattr(s, field).shape == ()
         assert_stats_match(s, tstreaming._frame_stats(want, j), with_hist=False)
+
+
+class _Pending:
+    """A batch's finish marker that says finished only once ``done`` is set."""
+
+    def __init__(self):
+        self.done = False
+
+    def query(self):
+        return self.done
+
+
+def _pending_markers(analyzer, monkeypatch):
+    """Give each dispatch of ``analyzer`` a new ``_Pending`` marker, listed
+    in dispatch order."""
+    markers = []
+
+    def marker():
+        markers.append(_Pending())
+        return markers[-1]
+
+    monkeypatch.setattr(analyzer, "_finish_marker", marker)
+    return markers
+
+
+def _ids(results):
+    return [r.frame_id for r in results]
+
+
+def test_pop_ready_hands_a_finished_batch_out_at_once():
+    """On the CPU a dispatched batch has finished, so ``pop_ready`` right
+    after the dispatch yields that batch in frame order, and nothing
+    before; ``submit`` alone returns what the JAX package's does."""
+    kinds = ("NDVI", "NDWI")
+    frames = _frames(10, seed=11)
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=kinds, depth=2, batch=4, device="cpu")
+    popped = []
+    for f in frames:
+        assert port.submit(f) is None  # pop_ready leaves nothing beyond the depth
+        popped.append(_ids(port.pop_ready()))
+    assert popped == [[], [], [], [0, 1, 2, 3], [], [], [], [4, 5, 6, 7], [], []]
+
+    again = StreamAnalyzer(frame_shape=SHAPE, kinds=kinds, depth=2, batch=4, device="cpu")
+    ref = JaxStreamAnalyzer(frame_shape=SHAPE, kinds=kinds, depth=2, batch=4)
+    mine = [again.submit(f) for f in frames]
+    want = [ref.submit(f) for f in frames]
+    assert [None if r is None else r.frame_id for r in mine] == \
+        [None if r is None else r.frame_id for r in want]
+
+
+def test_pop_ready_results_match_jax():
+    """The results ``pop_ready`` hands out early carry the JAX package's
+    statistics for their frames, every frame once, in order."""
+    kinds = ("NDVI", "GNDVI")
+    frames = _frames(9, seed=12)
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=kinds, depth=2, batch=4, device="cpu")
+    got = []
+    for f in frames:
+        r = port.submit(f)
+        got += ([r] if r is not None else []) + list(port.pop_ready())
+    got += list(port.drain())
+    ref = JaxStreamAnalyzer(frame_shape=SHAPE, kinds=kinds, depth=2, batch=4)
+    _assert_results_match(got, _submit_all(ref, frames), kinds, with_renders=False)
+
+
+def test_unfinished_batch_held_below_depth_and_handed_out_beyond(monkeypatch):
+    """A batch whose marker says unfinished stays while no more than
+    ``depth`` batches are in flight, leaves once more are, and leaves
+    at once when its marker turns finished."""
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=("NDVI",), depth=2, batch=2, device="cpu")
+    markers = _pending_markers(port, monkeypatch)
+    frames = _frames(8, seed=13)
+    returned, popped = [], []
+    for f in frames[:4]:
+        returned.append(port.submit(f))
+        popped += _ids(port.pop_ready())
+    assert returned == [None] * 4 and popped == [] and len(markers) == 2
+    returned = [port.submit(f) for f in frames[4:6]]  # a third batch in flight
+    assert [None if r is None else r.frame_id for r in returned] == [None, 0]
+    assert _ids(port.pop_ready()) == [1]  # beyond the depth, though unfinished
+    assert _ids(port.pop_ready()) == []   # frame 2's batch is held
+    markers[1].done = True
+    assert _ids(port.pop_ready()) == [2, 3]
+    markers[2].done = True
+    assert _ids(port.pop_ready()) == [4, 5]
+    assert _ids(port.drain()) == [] and port.dispatches == 3
+
+
+def test_finished_later_batch_waits_for_an_earlier_one(monkeypatch):
+    """With a partial batch from ``flush_partial`` among full ones, a later
+    batch that has finished never leaves ahead of an earlier one that has
+    not: results leave in frame order, each once."""
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=("NDVI",), depth=2, batch=4, device="cpu")
+    markers = _pending_markers(port, monkeypatch)
+    frames = _frames(10, seed=14)
+    out = []
+    for f in frames[:6]:
+        r = port.submit(f)
+        out += ([r] if r is not None else []) + list(port.pop_ready())
+    port.flush_partial()  # frames 4 and 5, a batch of two
+    for f in frames[6:]:
+        r = port.submit(f)
+        out += ([r] if r is not None else []) + list(port.pop_ready())
+    assert len(markers) == 3
+    assert _ids(out) == [0, 1]  # beyond the depth (10 in flight, 8 allowed)
+    markers[1].done = markers[2].done = True
+    assert _ids(port.pop_ready()) == []  # frames 2 and 3 are unfinished
+    markers[0].done = True
+    out += list(port.pop_ready())
+    assert _ids(out) == list(range(10))
+    assert _ids(port.drain()) == [] and port.dispatches == 3
+
+
+@pytest.mark.parametrize("finish_after", [0, 2])
+def test_run_from_rings_keeps_ring_order_and_every_frame_once(monkeypatch, finish_after):
+    """Two rings into a batch-2, depth-1 analyzer, with each batch finished
+    at once (the CPU's synchronous step) or only from its marker's third
+    query: every frame once, each ring's frames in order, frame ids in
+    order, each result that of its frame."""
+    shape, per_ring = (32, 16, 3), 3
+    port = StreamAnalyzer(frame_shape=shape[:2], kinds=("NDVI",), batch=2, depth=1,
+                          device="cpu")
+    if finish_after:
+        class Late:
+            def __init__(self):
+                self.asked = 0
+
+            def query(self):
+                self.asked += 1
+                return self.asked > finish_after
+
+        monkeypatch.setattr(port, "_finish_marker", Late)
+    with FrameRing.create(f"/rgnir_torch_ready_r0_{_PID}", shape, capacity=4) as r0, \
+            FrameRing.create(f"/rgnir_torch_ready_r1_{_PID}", shape, capacity=4) as r1:
+        for seq in range(per_ring):
+            assert r0.try_push(striped_frame(shape, 0, seq))
+            assert r1.try_push(striped_frame(shape, 1, seq))
+        r0.finish()
+        r1.finish()
+        got = list(port.run_from_rings([r0, r1], max_latency_s=0.01))
+    assert sorted((si, seq) for si, seq, _ in got) == \
+        [(si, seq) for si in range(2) for seq in range(per_ring)]
+    for si in range(2):
+        assert [seq for s, seq, _ in got if s == si] == list(range(per_ring))
+    assert [r.frame_id for _, _, r in got] == list(range(2 * per_ring))
+    for si, seq, res in got:
+        k = round(float(res.stats["NDVI"].coverage_pct) * shape[0] / 100.0)
+        assert k == 3 * si + seq + 1, (si, seq)

@@ -115,7 +115,9 @@ def test_stream_fill_and_held_per_frame():
         assert fill[i].start_ns <= fill[i].end_ns == held[i].start_ns <= held[i].end_ns
     # frames of one batch leave together: 0 and 1, 2 and 3, 4 and 5, then 6 alone
     assert len({fill[i].end_ns for i in (0, 1)}) == 1 and fill[0].end_ns < fill[2].end_ns
-    assert rec.counts == {"stream.partial_dispatches": 1}
+    # on the CPU a dispatched batch has finished, so pop_ready hands out
+    # frames 0-5 before the depth rule would; 6 leaves through drain
+    assert rec.counts == {"stream.partial_dispatches": 1, "stream.ready_handouts": 6}
     submits = rec.named("stream.submit")
     assert len(submits) == 7 and len(rec.named("stream.dispatch")) == 4
     ids = {s.id for s in submits}
@@ -123,6 +125,48 @@ def test_stream_fill_and_held_per_frame():
     # the partial batch is dispatched by drain, outside any submit
     assert [s.parent in ids for s in rec.named("stream.dispatch")] == [True] * 3 + [False]
     assert len(rec.named("analyze")) == 4
+    assert an._dispatched_ns == {}
+
+
+class _Marker:
+    """A batch's finish marker fixed at dispatch: finished or not."""
+
+    def __init__(self, done):
+        self.done = done
+
+    def query(self):
+        return self.done
+
+
+def test_stream_ready_handouts_count_the_early_hand_outs(monkeypatch):
+    """``stream.ready_handouts`` counts exactly the results ``pop_ready``
+    hands out while no more than ``depth`` batches are in flight; every
+    frame still has one ``stream.fill`` and one ``stream.held``, end to
+    start."""
+    an = StreamAnalyzer(frame_shape=(8, 16), kinds=("NDVI",), device="cpu", batch=2, depth=1)
+    finished = iter([True, False, True, False, True])  # batches 0 and 2 finish at once
+    monkeypatch.setattr(an, "_finish_marker", lambda: _Marker(next(finished)))
+    frames = np.random.default_rng(6).integers(0, 256, (9, 8, 16, 3), dtype=np.uint8)
+    out, early = [], 0
+    with profiling.recording() as rec:
+        for f in frames:
+            r = an.submit(f)
+            if r is not None:
+                out.append(r)
+            beyond = max(0, len(an._inflight) - an.depth * an.batch)
+            popped = list(an.pop_ready())
+            early += len(popped) - beyond
+            out += popped
+        out += list(an.drain())
+    assert [r.frame_id for r in out] == list(range(9))
+    assert early == 4  # frames 0, 1 and 4, 5; 2 by submit, 3 beyond the depth; 6-8 by drain
+    assert rec.counts == {"stream.ready_handouts": early, "stream.partial_dispatches": 1}
+    fill = {s.attrs["frame_id"]: s for s in rec.named("stream.fill")}
+    held = {s.attrs["frame_id"]: s for s in rec.named("stream.held")}
+    assert len(rec.named("stream.fill")) == len(rec.named("stream.held")) == 9
+    assert sorted(fill) == sorted(held) == list(range(9))
+    for i in range(9):
+        assert fill[i].start_ns <= fill[i].end_ns == held[i].start_ns <= held[i].end_ns
     assert an._dispatched_ns == {}
 
 
