@@ -31,9 +31,13 @@ class Readings:
     stage: List[Tuple[float, float]] = dataclasses.field(default_factory=list)
     late: List[Tuple[float, float]] = dataclasses.field(default_factory=list)
     counters: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # series an entry records for its own readers, by name (per call, per band, ...)
+    values: Dict[str, list] = dataclasses.field(default_factory=dict)
     trace: Optional[DeviceTrace] = None
     calls_traced: int = 0               # analysis calls (dispatches) whose device work the trace holds
-    bytes_per_call: int = 0             # portbench.core.roofline.pass_bytes of one call
+    # the least HBM bytes one call moves, by the entry's own yardstick (the
+    # analysis pass's: portbench.core.roofline.pass_bytes)
+    bytes_per_call: int = 0
     device_name: str = ""
 
 

@@ -46,7 +46,7 @@ def main(argv=None) -> int:
     import torch
 
     import run
-    from portbench.core import drive, spec
+    from portbench.core import spec
 
     run.cache_dirs(ROOT)
     cell = spec.resolve(args.workload)
@@ -55,13 +55,14 @@ def main(argv=None) -> int:
         return 2
     from rgnir_torch.kernels import _build
 
-    _build.build(("hist", "fused", "select"))
+    _build.build(cell.entry.KERNELS)
     device = torch.device("cuda", 0)
-    base = drive.settings(cell.config, cell.traffic)
+    base = cell.entry.settings(cell.config, cell.traffic)
     for k in args.streams:
         st = dataclasses.replace(base, mix=dataclasses.replace(base.mix, streams=k))
         with contextlib.redirect_stdout(sys.stderr):
-            r, rec = drive.run(st, args.seed, args.seconds, False, device, time.perf_counter())
+            r, rec = cell.entry.run(st, args.seed, args.seconds, False, device,
+                                    time.perf_counter())
         lat = [d - u for u, d in zip(r.frame_due, r.frame_done)]
         late = [x for _, x in r.late]
         fifth = max(1, len(late) // 5)

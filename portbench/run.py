@@ -3,15 +3,19 @@
 
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Resolves the cell in ``BENCHMARK.json`` (its configuration, traffic mix
-and metric files), makes the frames from the seed, builds the kernels the
-cell launches into ``build/`` in the checkout (the first run there
-compiles; later runs load), warms the cell's own static key, and measures
-for ``--seconds``. With ``--trace 0`` it reports the cell's end-to-end
-metrics; with ``--trace 1`` its per-layer metrics, the device's busy and
-traced seconds and a breakdown, from ``torch.profiler`` over the last
-seconds of the window. After the window it runs the plain reference on the
-same frames and decides ``correct``.
+Resolves the cell in ``BENCHMARK.json``: its configuration, traffic mix,
+metric readers, reference and the entry module that drives it
+(``portbench/entries/<entry>.py``, named by the configuration; see
+``portbench/core/spec.py`` for what an entry has). It builds the kernels
+the entry lists into ``build/`` in the checkout (the first run there
+compiles; later runs load), and the entry makes its inputs from the seed,
+warms the cell's own shapes and measures for ``--seconds``. With
+``--trace 0`` it reports the cell's end-to-end metrics; with ``--trace 1``
+its per-layer metrics, the device's busy and traced seconds and a
+breakdown, from ``torch.profiler`` over the last seconds of the window.
+After the window the entry runs the plain reference on the same inputs,
+and its numbers, each held to the configuration's limits, decide
+``correct``.
 
 The last line of standard output is the result, a JSON object; the last
 lines of standard error are the numbers compared, each beside its limit.
@@ -52,23 +56,23 @@ def cache_dirs(root: Path) -> None:
         os.environ[var] = str(root / "build" / "portbench" / sub)
 
 
-def run_cell(cell, seed: int, seconds: float, traced: bool, device, setup_t0: float,
-             kernels=("hist", "fused", "select")) -> dict:
-    """The result object of one run of ``cell`` (a ``spec.Cell``) on
-    ``device``."""
+def run_cell(cell, seed: int, seconds: float, traced: bool, device, setup_t0: float) -> dict:
+    """The result object of one run of ``cell`` (a ``spec.Cell``, whose
+    entry and reference were loaded from its checkout) on ``device``."""
     import torch
 
-    from portbench.core import check, drive
+    from portbench.core import check
     from portbench.core import device as devinfo
 
-    st = drive.settings(cell.config, cell.traffic)
+    entry = cell.entry
+    st = entry.settings(cell.config, cell.traffic)
     t = time.perf_counter()
     if device.type == "cuda":
         from rgnir_torch.kernels import _build
 
-        _build.build(kernels)
+        _build.build(entry.KERNELS)
     build_s = time.perf_counter() - t
-    readings, rec = drive.run(st, seed, seconds, traced, device, setup_t0)
+    readings, rec = entry.run(st, seed, seconds, traced, device, setup_t0)
     readings.counters["build_s"] = build_s
     readings.counters["to_build_s"] = t - setup_t0
     dev = devinfo.describe(device, cell.chips)
@@ -92,7 +96,7 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device, setup_t0: fl
     del readings
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    numbers = check.compare(st, rec, check.reference_module(cell.config), device)
+    numbers = entry.compare(st, rec, cell.reference, device)
     result["correct"], result["checks"] = check.judge(numbers, cell.config["limits"],
                                                       rec.attempted)
     return result

@@ -1,6 +1,7 @@
 """Shared pieces of the benchmark's CPU tests: the cells at a size the
-CPU holds (48 x 64 frames, a few to a call), run through the harness with
-``device="cpu"``, where every kernel of the port takes its plain version.
+CPU holds (each configuration and traffic file's ``cpu_small``), run
+through the harness with ``device="cpu"``, where every kernel of the port
+takes its plain version.
 
     python -m pytest portbench/tests -q
 """
@@ -19,27 +20,25 @@ for p in (ROOT, ROOT / "portbench"):
 
 from portbench.core import spec  # noqa: E402
 
-SMALL = {  # per configuration: what a CPU test changes, and per mix
-    "batch_2048": {"frame_height": 48, "frame_width": 64, "frames_per_call": 2},
-    "stream_1080p": {"frame_height": 48, "frame_width": 64, "frames_per_call": 4},
-}
-SMALL_MIX = {"renders": {"pool_frames": 4}, "stats": {"pool_frames": 4},
-             "open": {"pool_frames": 8, "streams": 8}}
 CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
 
 
-def small_cell(name: str) -> spec.Cell:
-    cell = spec.resolve(name)
-    cell.config.update(SMALL[cell.config["name"]])
-    cell.traffic.update(SMALL_MIX[name.split(".", 1)[1]])
+def small_cell(name: str, root: Path = ROOT) -> spec.Cell:
+    """Cell ``name`` of ``root``'s benchmark at the size its configuration
+    and traffic files give under ``cpu_small``."""
+    cell = spec.resolve(name, root=root)
+    cell.config.update(cell.cpu_small["config"])
+    cell.traffic.update(cell.cpu_small["traffic"])
     return cell
 
 
-def run_small(name: str, seed: int = 2**31 + 11, seconds: float = 0.4) -> dict:
+def run_small(cell, seed: int = 2**31 + 11, seconds: float = 0.4) -> dict:
+    """One run on the CPU of ``cell``, a name or a cell from :func:`small_cell`."""
     import run
 
-    return run.run_cell(small_cell(name), seed, seconds, False, torch.device("cpu"),
-                        time.perf_counter())
+    if isinstance(cell, str):
+        cell = small_cell(cell)
+    return run.run_cell(cell, seed, seconds, False, torch.device("cpu"), time.perf_counter())
 
 
 @pytest.fixture

@@ -1,5 +1,6 @@
-"""BENCHMARK.json and the files it names: every cell resolves, and every
-name, unit and entry keeps to the benchmark's contract."""
+"""BENCHMARK.json and the files it names: every cell resolves to its
+entry module, reference and readers, and every name, unit and entry keeps
+to the benchmark's contract."""
 
 import json
 import re
@@ -13,6 +14,18 @@ BENCH = spec.load_benchmark()
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}")
 UNIT = re.compile(r"[A-Za-z0-9_/%.\-]{1,16}")
 LINE = re.compile(r"[^\t\n]{1,200}")
+# a cut may touch only the deployment's scale: a key that counts something
+# (frames, bands of a mosaic, streams, layers, ...) or a mosaic's height,
+# which a cut takes down by whole bands
+SCALE = re.compile(r"(num|n)_\w+|\w+_(frames|count|bands|tiles|streams|cameras|images|layers"
+                   r"|dates|replicas|partitions)|frames|bands|tiles|streams|cameras|images|dates"
+                   r"|mosaic_height")
+# and never a shape or the work per pixel: the contract's widths, and this
+# system's frame and band sizes, index kinds, outputs, batch and precision
+SHAPE = re.compile(r"_dim$|_rank$|hidden_size|intermediate|latent|state_size|proj|head_dim"
+                   r"|expansion|experts_per_token|width|^frame_|^band_(rows|width|height)$"
+                   r"|_rows$|^kinds$|^with_|^precision$|^depth$|^frames_per_call$")
+ENTRY = ("KERNELS", "settings", "run", "compare", "control", "faults")
 
 
 def test_top_level_keys():
@@ -29,7 +42,15 @@ def test_cell_resolves_to_its_files(cell):
     w = next(w for w in BENCH["workloads"] if w["name"] == cell)
     assert spec.traffic_path(w["traffic"]).is_file()
     assert c.config["name"] == w["config"]
-    assert c.chips == 1
+    assert spec.entry_path(c.config["entry"]).is_file()
+    assert spec.reference_path(c.config["reference"]).is_file()
+    for name in ENTRY:
+        assert hasattr(c.entry, name), (c.config["entry"], name)
+    assert c.entry.faults(c.reference)
+    from rgnir_torch.kernels._build import SOURCES
+
+    assert set(c.entry.KERNELS) <= set(SOURCES)
+    assert c.chips in (1, 4)
     assert c.end_to_end and c.per_layer
     assert "setup_s" in [m.name for m in c.end_to_end]
     assert len(c.end_to_end) >= 2
@@ -76,11 +97,58 @@ def test_metrics_sources_bounds_and_moves():
                           "workloads"}
 
 
+def test_four_chip_cells_are_few():
+    chips = [w["chips"] for w in BENCH["workloads"]]
+    assert set(chips) <= {1, 4}
+    assert chips.count(4) <= max(1, len(chips) // 4)
+
+
 def test_configs_hold_what_they_run():
     for c in BENCH["configs"]:
         assert c["file"].startswith("portbench/configs/")
         cfg = json.loads((ROOT / c["file"]).read_text())
         assert cfg["name"] == c["name"]
         assert cfg["source"] == c["source"]
-        assert c["reduced"] == []
+        # the file lists each cut as {key: the source's value} and holds the value it runs
+        cuts = cfg.get("reduced", {})
+        assert sorted(c["reduced"]) == sorted(cuts), c["name"]
+        assert len(cuts) <= 16
+        for key, source_value in cuts.items():
+            assert cut_is_scale(key, source_value, cfg.get(key)), (c["name"], key)
+        assert isinstance(cfg["cpu_small"], dict)
         assert all(isinstance(v, (int, float)) for v in cfg["limits"].values())
+
+
+def cut_is_scale(key, source_value, value) -> bool:
+    """Whether a configuration may run ``key`` at ``value`` where its source
+    has ``source_value``: a cut of scale, down, in whole numbers."""
+    whole = all(isinstance(v, int) and not isinstance(v, bool) for v in (source_value, value))
+    return (bool(SCALE.fullmatch(key)) and not SHAPE.search(key) and whole
+            and 0 < value < source_value)
+
+
+@pytest.mark.parametrize("key,source_value,value,allowed", [
+    ("frame_height", 1536, 768, False),
+    ("frame_width", 2048, 1024, False),
+    ("kinds", 3, 1, False),
+    ("with_hist", True, False, False),
+    ("with_renders", True, False, False),
+    ("band_rows", 2048, 1024, False),
+    ("band_width", 32768, 16384, False),
+    ("frames_per_call", 32, 8, False),
+    ("hidden_size", 4096, 1024, False),
+    ("mosaic_width", 32768, 16384, False),
+    ("n_bands", 16, 8, True),
+    ("mosaic_height", 32768, 16384, True),
+    ("num_hidden_layers", 32, 4, True),
+    ("n_bands", 16, 32, False),
+    ("n_bands", 16, 8.5, False),
+])
+def test_a_cut_may_touch_only_scale(key, source_value, value, allowed):
+    assert cut_is_scale(key, source_value, value) == allowed
+
+
+def test_mixes_hold_their_cpu_size():
+    for w in BENCH["workloads"]:
+        mix = json.loads(spec.traffic_path(w["traffic"]).read_text())
+        assert isinstance(mix["cpu_small"], dict), w["traffic"]

@@ -1,4 +1,5 @@
-"""The load generator that every traffic mix is read by.
+"""The load generator that the analysis pass's traffic mixes are read by
+(the entries ``analyze_image_auto`` and ``StreamAnalyzer``).
 
 A mix is a JSON file beside this one, ``<mix>.json``. Its keys:
 
@@ -13,6 +14,8 @@ A mix is a JSON file beside this one, ``<mix>.json``. Its keys:
 - ``with_renders`` (optional): overrides the configuration's; the caller
   reads the renders back after each call whenever the pass makes them,
   and the statistics always.
+- ``cpu_small``: what the CPU tests change (``portbench.core.spec``
+  takes it out before the entry reads the mix).
 
 The open loop times each frame from its due time and reports how late it
 handed each frame over, so a stall shows in every later frame's latency
