@@ -2434,8 +2434,10 @@ def stage_line(res):
     s, b = res.stages, res.bands
     if not s:
         return "stages not measured (not on CUDA)"
-    return (f"per band: host copy into pinned memory {s['host_copy_s'] / b * 1e3:.4f} ms "
-            f"({s['bytes_sent'] / s['host_copy_s'] / 1e9:.4f} GB/s), copy to the card "
+    staged = (f"host copy into pinned memory {s['host_copy_s'] / b * 1e3:.4f} ms "
+              f"({s['bytes_sent'] / s['host_copy_s'] / 1e9:.4f} GB/s)" if s["host_copy_s"]
+              else "nothing staged (sent from pinned memory)")
+    return (f"per band: {staged}, copy to the card "
             f"{s['to_device_s'] / b * 1e3:.4f} ms ({s['bytes_sent'] / s['to_device_s'] / 1e9:.4f} "
             f"GB/s), kernel {s['kernel_s'] / b * 1e3:.4f} ms; {s['bytes_sent'] / 1e9:.4f} GB sent")
 
@@ -2445,8 +2447,10 @@ def streamed_mosaic_checks(torch, wrappers, smi, side=GIGA_SIDE, band_rows=GIGA_
     """(iii)-(v) ``analyze_mosaic_streamed`` on the card: a side x side
     mosaic in bands of ``band_rows`` rows from ``default_rng((SEED,
     band))`` with NDVI, GNDVI and NDWI, the device reduction against the
-    host one and against the whole mosaic analysed as one frame; four
-    shards of the card against one; one band yielded ``repeats`` times.
+    host one, the same mosaic from pinned memory (twice through one
+    ``MosaicStreamer``: nothing staged or pinned) and the whole mosaic
+    analysed as one frame; four shards of the card against one; one band
+    yielded ``repeats`` times.
     Returns the launches of the main run."""
     import itertools
 
@@ -2485,10 +2489,36 @@ def streamed_mosaic_checks(torch, wrappers, smi, side=GIGA_SIDE, band_rows=GIGA_
         f"{stage_line(dev)}; launches {launches}; equal to reduce='host' (native jointhist, "
         f"wall {host_wall:.4f} s, {px / host_wall / 1e6:.4f} MPix/s) in every field [{smi}]")
 
+    # the same mosaic held in pinned memory, twice through one session: sent
+    # without staging, nothing pinned by the session
+    from rgnir_torch.utils import profiling
+
+    pinned = torch.from_numpy(mosaic).pin_memory()
+    with gp.MosaicStreamer(["cuda"], band_rows=band_rows) as session:
+        walls = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            with profiling.recording() as rec:
+                got, launches_p = count_launches(
+                    torch, wrappers, ("jointhist",), "pinned streamed mosaic",
+                    lambda: session.analyze(pinned, kinds=KINDS))
+            walls.append(time.perf_counter() - t0)
+            require(launches_p == dict(NO_LAUNCHES, jointhist=bands),
+                    f"pinned streamed launches {launches_p}")
+            require(not rec.named("mosaic.stage") and "mosaic.pinned_bytes" not in rec.counts,
+                    "a pinned mosaic staged or pinned again")
+            same_streamed(f"pinned mosaic, survey {i + 1}", got, dev, KINDS)
+    del pinned
+    torch._C._host_emptyCache()
+    log(f"streamed mosaic from pinned memory (one session, two surveys): walls "
+        f"{', '.join(f'{w:.4f}' for w in walls)} s, {px / walls[-1] / 1e6:.4f} MPix/s the "
+        f"second; {stage_line(got)}; nothing staged or pinned; equal to the pageable run in "
+        f"every field [{smi}]")
+
     # against the whole mosaic as one frame on the card
     kinds = tuple(IndexKind.parse(k) for k in KINDS)
     pairs, lookup = gp._pair_layout(kinds)
-    total, _, _ = gp._host_reduce(gp._validated(gp.iter_row_bands(mosaic, band_rows)), pairs)
+    total = gp._host_reduce(gp._validated(gp.iter_row_bands(mosaic, band_rows)), pairs)[0]
     grids, _, _ = gp.kind_grids(total, pairs, lookup, kinds, WBConfig(), IndexConfig(), True, px)
     res = analyze_image_auto(mosaic, kinds=KINDS, with_renders=False, device="cuda")
     for kind in kinds:
@@ -2499,7 +2529,7 @@ def streamed_mosaic_checks(torch, wrappers, smi, side=GIGA_SIDE, band_rows=GIGA_
                     f"streamed {k} {f}: {getattr(g, f)} vs the frame's {getattr(r, f)}")
         require(np.array_equal(g.histogram, r.histogram.cpu().numpy()), f"streamed {k} histogram")
         require(int(g.n) == int(r.n) == px, f"streamed {k} n")
-        v, c = grids[kind]
+        v, c, _ = grids[kind]
         above = int(c[v > np.float32(kind.coverage_threshold)].sum())
         require(above == int((res.indices[k] > kind.coverage_threshold).sum()),
                 f"streamed {k} coverage count")

@@ -4,7 +4,8 @@ CUDA kernels for NVIDIA Hopper (sm_90a).
 A port of ``rgnir_tpu``'s analysis pass (white balance, NDVI/GNDVI/NDWI
 index maps, statistics, colormap renders). It imports neither JAX nor
 the JAX package. Entry points: :func:`analyze_image_auto` and, for a
-mosaic of any size streamed in bands, :func:`analyze_mosaic_streamed`,
+mosaic of any size streamed in bands, :func:`analyze_mosaic_streamed` (one
+survey) and :class:`MosaicStreamer` (a session over many),
 on CUDA unless the caller passes ``device="cpu"``.
 """
 
@@ -32,7 +33,11 @@ from rgnir_torch.ops import (
 from rgnir_torch.ops.stats import IndexStats, index_stats, to_analyze_index_dict
 from rgnir_torch.pipeline.dispatch import analyze_image_auto
 from rgnir_torch.pipeline.fused import AnalyzeResult, analyze_image
-from rgnir_torch.pipeline.gigapixel import StreamedMosaicResult, analyze_mosaic_streamed
+from rgnir_torch.pipeline.gigapixel import (
+    MosaicStreamer,
+    StreamedMosaicResult,
+    analyze_mosaic_streamed,
+)
 
 __all__ = [
     "ALL_INDICES",
@@ -41,6 +46,7 @@ __all__ = [
     "IndexConfig",
     "IndexKind",
     "IndexStats",
+    "MosaicStreamer",
     "RenderConfig",
     "StreamedMosaicResult",
     "TileConfig",

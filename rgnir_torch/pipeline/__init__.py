@@ -5,10 +5,15 @@ their callers."""
 
 from rgnir_torch.pipeline.dispatch import analyze_image_auto
 from rgnir_torch.pipeline.fused import AnalyzeResult, analyze_image
-from rgnir_torch.pipeline.gigapixel import StreamedMosaicResult, analyze_mosaic_streamed
+from rgnir_torch.pipeline.gigapixel import (
+    MosaicStreamer,
+    StreamedMosaicResult,
+    analyze_mosaic_streamed,
+)
 
 __all__ = [
     "AnalyzeResult",
+    "MosaicStreamer",
     "StreamedMosaicResult",
     "analyze_image",
     "analyze_image_auto",

@@ -27,7 +27,14 @@ replay, ``graph.copy_in``, ``graph.launch``, ``graph.copy_out``;
 ``stream.fill`` (staged to its batch's dispatch) and ``stream.held``
 (dispatch to the result handed out), each with ``frame_id``; the
 counter ``stream.partial_dispatches``; ``batch.<stage>``
-(``StageTimer``); ``gc`` (attributes ``generation``, ``collected``).
+(``StageTimer``); ``gc`` (attributes ``generation``, ``collected``);
+``mosaic.pass`` (one survey of ``pipeline.gigapixel.MosaicStreamer``)
+with, per staged band (a pinned mosaic is not staged),
+``mosaic.slot_wait`` (the wait on the slot's last copy
+out) and ``mosaic.stage`` (the band's copy into its pinned slot,
+attributes ``bytes`` and ``threads``), then ``mosaic.closure``; the
+counters ``mosaic.bands`` and ``mosaic.pinned_bytes`` (pinned staging
+bytes a session newly allocated).
 
 Counterpart: ``rgnir_tpu/utils/profiling.py`` (``jax.profiler`` there).
 """
