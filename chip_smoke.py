@@ -1441,18 +1441,24 @@ def big_frame_checks(torch, wrappers, smi):
         return (out, (time.perf_counter() - t0) * 1e3,
                 torch.cuda.max_memory_allocated() - base)
 
+    # (each replay's result checked and dropped before the next call, which
+    # then replays the same graph)
     c0 = kp.GRAPHS.captures
+    calls = []
     with profiling.recording() as rec:
-        calls = [peak_call(lambda: analyze_image_auto(img, kinds=("NDVI",), device="cuda"))
-                 for _ in range(3)]
+        for what in ("eager", "captured", "replayed"):
+            res, ms, peak = peak_call(lambda: analyze_image_auto(img, kinds=("NDVI",),
+                                                                 device="cuda"))
+            if calls:
+                check_replay(torch, f"analyze_image_auto {BIG_FRAME} {what}", res, calls[0][0],
+                             ("NDVI",))
+                res = None
+            calls.append((res, ms, peak))
     capture_ms = rec.named("graph.capture")[-1].seconds * 1e3
     require(kp.GRAPHS.captures == c0 + 1, f"analyze_image_auto {BIG_FRAME}: one capture")
     entry = kp.GRAPHS.get(kp.GRAPHS.keys()[-1])
     require(entry.graph_launches.get("fused") == chunks,
             f"the graph of {BIG_FRAME} holds {chunks} fused launches: {entry.graph_launches}")
-    for what, (res, _, _) in zip(("captured", "replayed"), calls[1:]):
-        check_replay(torch, f"analyze_image_auto {BIG_FRAME} {what}", res, calls[0][0],
-                     ("NDVI",))
     log(f"analyze_image_auto {BIG_FRAME}, NDVI, renders and histogram: replays equal the eager "
         f"first call; launches a replay {entry.graph_launches}; ms and peak device bytes above "
         f"the frame: first call (eager) {calls[0][1]:.1f} ms, {calls[0][2]}; second (capture "
@@ -3530,31 +3536,38 @@ def compiled_case(torch, timer, smi, i, label, shape, kw):
                                         f"{eager_set}, the graph holds {sets} (by the wrappers)")
     check_replay(torch, f"compiled {label}", second, want, kinds)
     held = [t.clone() for t in graph.flatten(second)[0]]
+    # the second held: a second graph, where it handed outputs out in place
+    # (at a small shape each output is copied out, and the graph stays free)
     third = kp.analyze_image_kernel(other, **kw)
+    rings = 1 + bool(entry.in_place_bytes)
+    require(cache.captures == c0 + rings and len(cache.ring(cache.keys()[-1])) == rings,
+            f"compiled {label}: the third call, the second's result held, uses {rings} graphs")
     for t, h in zip(graph.flatten(second)[0], held):
         check_equal(torch, f"compiled {label}: a replay's result after the next call", t, h)
     check_replay(torch, f"compiled {label} third call", third, kp._analyze_eager(other, **kw),
                  kinds)
+    del second, third, held
     # on the device, a replay launches what the eager pass launches
     tries = (device_agrees(torch, eager, sets), device_agrees(torch, replay, sets))
     # in turns, host noise being large: eager, replay, replay, eager
     e1, r1, r2, e2 = (timer.wall(f) for f in (eager, replay, replay, eager))
     dev_ms, by = device_profile(torch, replay)
     graph_ms = timer.kernel(lambda: entry.graph.replay())
-    copy_ms = timer.kernel(lambda: entry.outputs.copy())
-    copy_wall = timer.wall(lambda: entry.outputs.copy())
-    require((cache.eager_calls, cache.captures) == (e0 + 1, c0 + 1),
-            f"compiled {label}: no capture after the second call")
+    copy_ms = timer.kernel(lambda: entry.outputs.hand_out())
+    copy_wall = timer.wall(lambda: entry.outputs.hand_out())
+    require((cache.eager_calls, cache.captures) == (e0 + 1, c0 + rings),
+            f"compiled {label}: no capture after the third call")
     busy = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms, {dev_ms / r2:.1%} of its wall"
     return (f"compiled {label} {shape} {kw}: the first call eager, the second captured; the "
             f"replays equal _analyze_eager bit for bit (mean, variance within {MEAN_ATOL}, "
-            f"{VAR_ATOL}), a third call leaves the second's result unchanged and captures "
-            f"nothing; launches a replay {sets} = eager on the device (in {tries[1]} and "
+            f"{VAR_ATOL}), a third call leaves the second's result, held, unchanged "
+            f"({rings} graphs of the key), later ones capture nothing; launches a replay "
+            f"{sets} = eager on the device (in {tries[1]} and "
             f"{tries[0]} profiled calls); wall ms (host clock, median of {REPS}, in turns) eager "
             f"{e1:.4f}, replay {r1:.4f}, replay {r2:.4f}, eager {e2:.4f}; a replay's device time "
-            f"{busy}; the graph alone {graph_ms:.4f} ms on the device; output copy "
+            f"{busy}; the graph alone {graph_ms:.4f} ms on the device; hand-out "
             f"{copy_ms:.4f} ms on the device, {copy_wall:.4f} ms wall, {entry.outputs.nbytes} "
-            f"bytes; first call (eager) {first_wall:.1f} ms, peak {first_peak} bytes above the "
+            f"bytes copied, {entry.outputs.in_place_bytes} in place; first call (eager) {first_wall:.1f} ms, peak {first_peak} bytes above the "
             f"inputs; second call {second_wall:.1f} ms (capture {capture_ms:.1f} ms "
             f"of it), peak {second_peak} bytes; pool {entry.pool_bytes} bytes, the key "
             f"{entry.nbytes} bytes [{smi}]")

@@ -11,20 +11,28 @@ caches of device tensors, so that a caller who analyses a shape once pays
 nothing more. The second call captures the pass into a
 ``torch.cuda.CUDAGraph`` with a static input and static outputs
 (:func:`capture`). That call and every later one copies its frames into
-the static input, replays the graph on the caller's current stream and
-copies the outputs out of the graph's pool into fresh tensors, so that no
-later call changes a result already returned (JAX returns new arrays on
-every call).
+the static input and replays the graph on the caller's current stream.
+The result's small outputs (the statistics) are copied out of the graph's
+pool with one copy; its large ones (the white-balanced frames, the index
+maps, the renders) are handed out in place, as views of the pool.
 
-A key's graph keeps its private memory pool (the outputs, the
-intermediates, the select's scratch and its own one-pass select tables)
-and its static input. :class:`GraphCache` keeps graphs up to
-``MAX_GRAPH_BYTES`` of those and drops the least recently used first; a
-graph larger than the limit alone is dropped right after its replay. It
-also drops a graph whose launch grids the autotune table no longer gives.
-A dropped graph's memory goes back to the card, and its key starts over.
-A capture that fails raises with the CUDA error: nothing falls back to
-the eager pass.
+No later call changes a result already returned (JAX returns new arrays
+on every call), because a key keeps a small ring of graphs, each captured
+alike with its own pool and static input, and replays only a graph whose
+large outputs nothing outside it references any more (the storages' use
+counts, as PyTorch's CUDA graph trees check an output's liveness). When
+every graph of the key is held, the call captures one more, up to
+``MAX_MEMBERS`` and within ``MAX_GRAPH_BYTES``; past that it runs the
+eager pass into fresh tensors, as a key's first call does. A caller that
+drops each result uses one graph; one that holds a few, a few.
+
+:class:`GraphCache` keeps graphs up to ``MAX_GRAPH_BYTES`` of their pools
+and static inputs and drops the least recently used key, all its graphs,
+first; a graph larger than the limit alone is dropped right after its
+replay. It also drops the graphs whose launch grids the autotune table no
+longer gives. A dropped graph's memory goes back to the card once nothing
+references its outputs, and its key starts over. A capture that fails
+raises with the CUDA error: nothing falls back to the eager pass.
 """
 
 from __future__ import annotations
@@ -32,8 +40,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import threading
-from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Hashable, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -46,8 +55,10 @@ MAX_GRAPH_BYTES = 16 << 30
 MAX_SEEN_KEYS = 256
 # Outputs of at most this many bytes are packed into one buffer inside the
 # graph, so that a replay copies them out with one copy; larger ones are
-# copied a storage at a time.
+# handed out in place.
 SMALL_OUTPUT_BYTES = 1 << 20
+# Graphs a key may have at once, so as many of its results held in place.
+MAX_MEMBERS = 4
 
 
 class CaptureError(RuntimeError):
@@ -121,58 +132,71 @@ def scratch(name: Hashable, nbytes: int, device: torch.device) -> Optional[torch
 _LEAF = object()
 
 
+def _spec(o: Any, leaves: List[torch.Tensor]) -> Any:
+    if isinstance(o, torch.Tensor):
+        leaves.append(o)
+        return _LEAF
+    if dataclasses.is_dataclass(o) and not isinstance(o, type):
+        return type(o), tuple((f.name, _spec(getattr(o, f.name), leaves))
+                              for f in dataclasses.fields(o))
+    if isinstance(o, dict):
+        return dict, tuple((k, _spec(v, leaves)) for k, v in o.items())
+    if isinstance(o, (tuple, list)):
+        return type(o), tuple(_spec(v, leaves) for v in o)
+    return None, o
+
+
+def _make(s: Any, it: Iterator[torch.Tensor]) -> Any:
+    if s is _LEAF:
+        return next(it)
+    kind, items = s
+    if kind is None:
+        return items
+    if kind is dict:
+        return {k: _make(v, it) for k, v in items}
+    if kind in (tuple, list):
+        return kind(_make(v, it) for v in items)
+    return kind(**{k: _make(v, it) for k, v in items})
+
+
+def _build(tree: Any, new: List[torch.Tensor]) -> Any:
+    return _make(tree, iter(new))
+
+
 def flatten(obj: Any) -> Tuple[List[torch.Tensor], Callable[[List[torch.Tensor]], Any]]:
     """The tensors of a nest of dataclasses, dicts, tuples and lists, and a
     function that builds the same nest around other tensors in their
-    place (anything else is kept as it is)."""
+    place (anything else is kept as it is). Neither keeps a reference to
+    a tensor beyond the call, so a result built of them is freed at its
+    last reference, with no collection."""
     leaves: List[torch.Tensor] = []
+    tree = _spec(obj, leaves)
+    return leaves, functools.partial(_build, tree)
 
-    def spec(o):
-        if isinstance(o, torch.Tensor):
-            leaves.append(o)
-            return _LEAF
-        if dataclasses.is_dataclass(o) and not isinstance(o, type):
-            return type(o), tuple((f.name, spec(getattr(o, f.name)))
-                                  for f in dataclasses.fields(o))
-        if isinstance(o, dict):
-            return dict, tuple((k, spec(v)) for k, v in o.items())
-        if isinstance(o, (tuple, list)):
-            return type(o), tuple(spec(v) for v in o)
-        return None, o
 
-    tree = spec(obj)
-
-    def build(new: List[torch.Tensor]) -> Any:
-        it = iter(new)
-
-        def make(s):
-            if s is _LEAF:
-                return next(it)
-            kind, items = s
-            if kind is None:
-                return items
-            if kind is dict:
-                return {k: make(v) for k, v in items}
-            if kind in (tuple, list):
-                return kind(make(v) for v in items)
-            return kind(**{k: make(v) for k, v in items})
-
-        return make(tree)
-
-    return leaves, build
+def _use_count(storage: torch.UntypedStorage) -> int:
+    """The references to a storage's data: one from each tensor on it, and
+    one from its Python object while Python holds that."""
+    return torch._C._storage_Use_Count(storage._cdata)
 
 
 class Outputs:
-    """Copies a result's tensors out of the memory they were made in.
+    """Hands a result's tensors out of the memory they were made in.
 
     Built from the result's leaves where they are made (inside the
     capture): the small ones are packed into one byte buffer there, by
-    falling element size (so that each lies aligned) and by dtype; each large
-    one is copied with the whole storage it views (the index maps of every
-    kind share one), and rebuilt with its own shape, strides and offset.
+    falling element size (so that each lies aligned) and by dtype, and each
+    hand-out copies that buffer out; each large one is handed out in place,
+    rebuilt with its own shape, strides and offset on the whole storage it
+    views (the index maps of every kind share one). :meth:`held` says
+    whether anything but the owner references a large storage still.
+    ``kept`` are tensors the owner keeps besides, which may view one of
+    those storages (the graph's static input, which ``wb`` is without white
+    balance).
     """
 
-    def __init__(self, leaves: List[torch.Tensor], build: Callable) -> None:
+    def __init__(self, leaves: List[torch.Tensor], build: Callable,
+                 kept: Tuple[torch.Tensor, ...] = ()) -> None:
         self._build = build
         self._n = len(leaves)
         small = sorted((i for i, t in enumerate(leaves)
@@ -208,15 +232,33 @@ class Outputs:
             by_storage[st.data_ptr()][1].append(
                 (i, t.dtype, tuple(t.shape), t.stride(), t.storage_offset()))
         self._storages = list(by_storage.values())
+        # each storage's Python object, kept so that it counts once whatever
+        # PyTorch does with one nobody holds, and the owner's references to
+        # it: that object, the whole-storage tensor and any kept tensor on it
+        kept_ptrs = [k.untyped_storage().data_ptr() for k in kept]
+        self._counted = [(whole.untyped_storage(), 2 + kept_ptrs.count(ptr))
+                         for ptr, (whole, _) in by_storage.items()]
 
     @property
     def nbytes(self) -> int:
-        """Bytes one copy moves."""
-        return ((0 if self.packed is None else self.packed.numel())
-                + sum(whole.numel() for whole, _ in self._storages))
+        """Bytes a hand-out copies."""
+        return 0 if self.packed is None else self.packed.numel()
 
-    def copy(self) -> Any:
-        """The result, in fresh tensors (each copy on the current stream)."""
+    @property
+    def in_place_bytes(self) -> int:
+        """Bytes a hand-out gives in place."""
+        return sum(whole.numel() for whole, _ in self._storages)
+
+    def held(self) -> bool:
+        """Whether a tensor outside the owner references a large output: the
+        output itself, a view, a slice or a dtype view of one, or a numpy
+        array on it keeps it held (a Python storage object alone does not:
+        PyTorch hands every caller the one object the owner keeps)."""
+        return any(_use_count(st) > own for st, own in self._counted)
+
+    def hand_out(self) -> Any:
+        """The result: the small tensors copied into a fresh buffer (on the
+        current stream), the large ones views of their storages."""
         new: List[Optional[torch.Tensor]] = [None] * self._n
         if self.packed is not None:
             packed = self.packed.clone()
@@ -225,11 +267,10 @@ class Outputs:
                 for (i, _, shape), piece in zip(parts, pieces):
                     new[i] = piece.view(shape)
         for whole, members in self._storages:
-            fresh = whole.clone()
             typed: Dict[torch.dtype, torch.Tensor] = {}
             for i, dtype, shape, stride, offset in members:
                 if dtype not in typed:
-                    typed[dtype] = fresh.view(dtype)
+                    typed[dtype] = whole.view(dtype)
                 new[i] = typed[dtype].as_strided(shape, stride, offset)
         return self._build(new)
 
@@ -237,12 +278,15 @@ class Outputs:
 # --- one key's graph -----------------------------------------------------------
 
 class Graph:
-    """A captured pass: its static input, its graph and its outputs.
+    """A captured pass: its static input, its graph and its outputs, one
+    member of its key's ring.
 
-    ``replay`` runs on the caller's current stream. A replay on another
-    stream than the last one first waits for the last one's copies out, so
-    two streams never share the static buffers or the select's tables at
-    once.
+    ``replay`` runs on the caller's current stream and hands the large
+    outputs out in place, so the cache replays it only when it is not
+    :meth:`busy`. A replay on another stream than the last one first waits
+    for all that the last stream had queued (the last replay and the
+    reads of what it handed out), so two streams never share the static
+    buffers, the outputs or the select's tables at once.
     """
 
     def __init__(self, graph, static_in: torch.Tensor, outputs: Outputs, ctx: _Context,
@@ -253,14 +297,20 @@ class Graph:
         self.ctx = ctx
         self.pool_bytes = pool_bytes
         self.nbytes = pool_bytes + static_in.numel() * static_in.element_size()
+        self.in_place_bytes = outputs.in_place_bytes
         self.done = torch.cuda.Event()
         self.stream = None
+
+    def busy(self) -> bool:
+        """Whether a result it handed out is referenced still."""
+        return self.outputs.held()
 
     def replay(self, img: torch.Tensor) -> Any:
         dev = self.static_in.device
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev)
             if self.stream is not None and self.stream != stream:
+                self.done.record(self.stream)
                 stream.wait_event(self.done)
             self.stream = stream
             with profiling.span("graph.copy_in"):
@@ -268,13 +318,14 @@ class Graph:
             with profiling.span("graph.launch"):
                 self.graph.replay()
             with profiling.span("graph.copy_out"):
-                out = self.outputs.copy()
+                out = self.outputs.hand_out()
             self.done.record(stream)
         return out
 
     def release(self) -> None:
-        """Free the graph once its last replay's copies have ended, and give
-        its pool back to the card."""
+        """Free the graph once its last replay has ended, and give its pool
+        back to the card; outputs a caller still holds keep their memory
+        until they are dropped."""
         self.done.synchronize()
         self.graph.reset()
         self.graph = self.outputs = self.static_in = self.ctx = None
@@ -314,7 +365,7 @@ def capture(key: Hashable, img: torch.Tensor, body: Callable[[torch.Tensor], Any
             with _within(ctx), torch.cuda.stream(side):
                 g.capture_begin(capture_error_mode="thread_local")
                 try:
-                    outputs = Outputs(*flatten(body(static_in)))
+                    outputs = Outputs(*flatten(body(static_in)), kept=(static_in,))
                 finally:
                     g.capture_end()
         except Exception as exc:
@@ -341,22 +392,30 @@ def _add(total: Dict[str, int], counts: Dict[str, int]) -> None:
 
 
 class GraphCache:
-    """Graphs by static key, the least recently used dropped first past
-    ``max_bytes``.
+    """Rings of graphs by static key, the least recently used key dropped
+    first past ``max_bytes``.
 
     The first call with a key runs ``body`` eagerly and remembers the key
-    (up to ``MAX_SEEN_KEYS`` of them); the next one captures it.
+    (up to ``MAX_SEEN_KEYS`` of them); the next one captures it. A later
+    call replays a graph of the key that is not ``busy()``; when all are,
+    it captures another (``members``) if the key has fewer than
+    ``MAX_MEMBERS`` and one more fits ``max_bytes`` beside every cached
+    graph, and else runs ``body`` eagerly (``eager_fallbacks``).
     ``capture(key, img, body, ctx)`` makes a graph (anything with
-    ``nbytes``, ``replay(img)`` and ``release()``); ``grids(base)`` gives
-    the launch grids the autotune table sets for a base key, and is part
-    of the key; ``size_hint(base)`` estimates a new graph's bytes, so that
-    older graphs make room before it is captured rather than after.
-    ``eager_calls`` (first calls), ``captures``, ``replays`` and
-    ``evictions`` count since the cache was made, and, by kernel,
-    ``captured_launches`` the launches recorded into graphs (which the
-    wrappers count and a capture does not run) and ``replayed_launches``
-    those the replays ran (each replay its graph's ``graph_launches``,
-    which no wrapper counts).
+    ``nbytes``, ``in_place_bytes``, ``busy()``, ``replay(img)`` and
+    ``release()``); ``grids(base)`` gives the launch grids the autotune
+    table sets for a base key, and is part of the key; ``size_hint(base)``
+    estimates a key's first graph's bytes, so that older graphs make room
+    before it is captured rather than after.
+
+    ``eager_calls`` (first calls and eager fallbacks), ``captures``,
+    ``replays``, ``evictions`` (graphs dropped), ``in_place`` (replays
+    that handed large outputs out in place), ``members`` (captures beyond
+    a key's first) and ``eager_fallbacks`` count since the cache was
+    made, and, by kernel, ``captured_launches`` the launches recorded into
+    graphs (which the wrappers count and a capture does not run) and
+    ``replayed_launches`` those the replays ran (each replay its graph's
+    ``graph_launches``, which no wrapper counts).
     """
 
     def __init__(self, capture: Callable, grids: Callable[[Hashable], Hashable],
@@ -366,10 +425,11 @@ class GraphCache:
         self.grids = grids
         self.size_hint = size_hint
         self.max_bytes = max_bytes
-        self._entries: "collections.OrderedDict[Hashable, Any]" = collections.OrderedDict()
+        self._entries: "collections.OrderedDict[Hashable, List[Any]]" = collections.OrderedDict()
         self._seen: "collections.OrderedDict[Hashable, _Context]" = collections.OrderedDict()
         self._lock = threading.RLock()
         self.eager_calls = self.captures = self.replays = self.evictions = 0
+        self.in_place = self.members = self.eager_fallbacks = 0
         self.captured_launches: Dict[str, int] = {}
         self.replayed_launches: Dict[str, int] = {}
 
@@ -382,61 +442,94 @@ class GraphCache:
             return list(self._entries)
 
     def get(self, key: Hashable):
-        return self._entries.get(key)
+        """The key's first graph, or None."""
+        ring = self._entries.get(key)
+        return ring[0] if ring else None
+
+    def ring(self, key: Hashable) -> List[Any]:
+        """The key's graphs, in the order they were captured."""
+        return list(self._entries.get(key, ()))
 
     @property
     def nbytes(self) -> int:
-        return sum(e.nbytes for e in self._entries.values())
+        return sum(g.nbytes for ring in self._entries.values() for g in ring)
 
     def key(self, base: Hashable) -> Tuple[Hashable, Hashable]:
         return base, self.grids(base)
 
     def __call__(self, base: Hashable, img: torch.Tensor, body: Callable) -> Any:
         """``body(img)`` on the first call of ``base`` and the grids of now;
-        on a later one, its graph replayed on ``img``, captured first if
-        there is none."""
+        on a later one, a graph of it replayed on ``img``, captured first if
+        none is free and one more may be, else ``body(img)`` again."""
         key = self.key(base)
         label = f"{hash(key) & 0xFFFFFFFF:08x}" if profiling.is_recording() else None
         with self._lock:
-            entry = self._entries.get(key)
-            if entry is None:
+            ring = self._entries.get(key)
+            if ring is None:
                 ctx = self._seen.get(key)
                 if ctx is None:  # a refused input raises here, and is not remembered
                     ctx = _Context()
-                    with _within(ctx), profiling.span("graph.eager", key=label):
-                        out = body(img)
+                    out = self._eager(img, body, ctx, label)
                     self._seen[key] = ctx
                     while len(self._seen) > MAX_SEEN_KEYS:
                         self._seen.popitem(last=False)
-                    self.eager_calls += 1
                     return out
                 self._shrink(self.size_hint(base))
-                with profiling.span("graph.capture", key=label):
-                    entry = self.capture(key, img, body, ctx)
+                entry = self._capture(key, img, body, ctx, label)
                 del self._seen[key]
-                self.captures += 1
-                _add(self.captured_launches, getattr(entry, "graph_launches", {}))
                 if entry.nbytes <= self.max_bytes:
-                    self._entries[key] = entry
+                    self._entries[key] = [entry]
                     self._shrink()
             else:
                 self._entries.move_to_end(key)
+                entry = next((g for g in ring if not g.busy()), None)
+                if entry is None:
+                    first = ring[0]
+                    if len(ring) >= MAX_MEMBERS or self.nbytes + first.nbytes > self.max_bytes:
+                        out = self._eager(img, body, first.ctx, label)
+                        self.eager_fallbacks += 1
+                        profiling.count("graph.eager_fallback")
+                        return out
+                    entry = self._capture(key, img, body, _Context(memo=first.ctx.memo), label)
+                    ring.append(entry)
+                    self.members += 1
+                    profiling.count("graph.member")
             with profiling.span("graph.replay", key=label):
                 out = entry.replay(img)
             self.replays += 1
             _add(self.replayed_launches, getattr(entry, "graph_launches", {}))
+            if entry.in_place_bytes:
+                self.in_place += 1
+                profiling.count("graph.in_place")
             if key not in self._entries:  # larger than the limit alone
                 entry.release()
                 self.evictions += 1
             return out
 
+    def _eager(self, img: torch.Tensor, body: Callable, ctx: _Context,
+               label: Optional[str]) -> Any:
+        """``body(img)`` within the key's context, into fresh tensors."""
+        with _within(ctx), profiling.span("graph.eager", key=label):
+            out = body(img)
+        self.eager_calls += 1
+        return out
+
+    def _capture(self, key: Hashable, img: torch.Tensor, body: Callable, ctx: _Context,
+                 label: Optional[str]) -> Any:
+        with profiling.span("graph.capture", key=label):
+            entry = self.capture(key, img, body, ctx)
+        self.captures += 1
+        _add(self.captured_launches, getattr(entry, "graph_launches", {}))
+        return entry
+
     def _drop(self, key: Hashable) -> None:
-        self._entries.pop(key).release()
-        self.evictions += 1
+        for entry in self._entries.pop(key):
+            entry.release()
+            self.evictions += 1
 
     def _shrink(self, extra: int = 0) -> None:
-        """Drop the least recently used graphs until they and ``extra``
-        bytes fit ``max_bytes``."""
+        """Drop the least recently used keys' graphs until they and
+        ``extra`` bytes fit ``max_bytes``."""
         while self._entries and self.nbytes + extra > self.max_bytes:
             self._drop(next(iter(self._entries)))
 

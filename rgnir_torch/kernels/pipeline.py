@@ -12,7 +12,7 @@ plain version, so the same composition runs in the CPU tests.
 :func:`_analyze_eager` is that composition, run step by step from
 Python. :func:`analyze_image_kernel` runs it so on CPU tensors and on the
 first call with a static key on a CUDA tensor; from the second call on it
-replays the CUDA graph of that key (:mod:`rgnir_torch.kernels.graph`),
+replays a CUDA graph of that key (:mod:`rgnir_torch.kernels.graph`),
 captured from ``_analyze_eager`` on that call, as ``jax.jit`` compiles the
 JAX package's pass once per static configuration.
 Counterpart: ``rgnir_tpu/kernels/pipeline.py``.
@@ -196,7 +196,7 @@ def _capture(key: tuple, img: torch.Tensor, body, ctx) -> graph.Graph:
                          counts=lambda: {k: w.launches for k, w in _WRAPPERS.items()})
 
 
-# The graphs of analyze_image_kernel's CUDA calls, one per static key and grids.
+# The graphs of analyze_image_kernel's CUDA calls: a ring per static key and grids.
 GRAPHS = graph.GraphCache(_capture, launch_grids, graph_bytes_hint)
 autotune.on_change(GRAPHS.regrid)
 
@@ -224,10 +224,13 @@ def analyze_image_kernel(
 
     A CPU tensor runs :func:`_analyze_eager`. On a CUDA tensor the first
     call with a :func:`static_key` and :func:`launch_grids` runs
-    ``_analyze_eager`` too; every later one replays the graph of that key
-    in ``GRAPHS``, captured from ``_analyze_eager`` on the second call.
-    The result is in fresh tensors, which no later call changes. A capture
-    that fails raises :class:`rgnir_torch.kernels.graph.CaptureError`."""
+    ``_analyze_eager`` too; every later one replays a graph of that key
+    in ``GRAPHS``, captured from ``_analyze_eager`` on the second call (and
+    another while every graph of the key has a result held). No later call
+    changes the result: its statistics are fresh tensors, and its frames,
+    index maps and renders are its graph's own, which no replay overwrites
+    while any of them is referenced. A capture that fails raises
+    :class:`rgnir_torch.kernels.graph.CaptureError`."""
     with profiling.span("analyze"):
         if img.device.type != "cuda":
             return _analyze_eager(img, kinds, with_renders, with_hist, select_onepass, with_wb)

@@ -21,7 +21,10 @@ The spans the program opens, without the ``rgnir.`` prefix:
 ``analyze`` (``kernels.pipeline.analyze_image_kernel``);
 ``graph.eager``, ``graph.capture``, ``graph.replay`` (``GraphCache``, with
 the attribute ``key``, a short hash of the static key) and, inside a
-replay, ``graph.copy_in``, ``graph.launch``, ``graph.copy_out``;
+replay, ``graph.copy_in``, ``graph.launch``, ``graph.copy_out``; the
+counters ``graph.in_place``, ``graph.member`` and ``graph.eager_fallback``
+(a replay that handed its large outputs out in place, a graph captured
+beside a key's others, an eager call because none was free);
 ``stream.submit`` with ``stream.slot_wait``, ``stream.copy`` and
 ``stream.dispatch`` (``StreamAnalyzer``), and per frame the intervals
 ``stream.fill`` (staged to its batch's dispatch) and ``stream.held``
@@ -226,7 +229,8 @@ def counters() -> Dict[str, int]:
     """The process's program counters, by flat name:
 
     - ``graph.eager_calls``, ``graph.captures``, ``graph.replays``,
-      ``graph.evictions``: ``kernels.pipeline.GRAPHS``' counts;
+      ``graph.evictions``, ``graph.in_place``, ``graph.members``,
+      ``graph.eager_fallbacks``: ``kernels.pipeline.GRAPHS``' counts;
     - ``launches.<kernel>``: each kernel wrapper's ``launches``
       (``kernels.WRAPPERS``), and ``replayed_launches.<kernel>``: the
       launches the graph cache's replays ran, which no wrapper counts;
@@ -240,7 +244,8 @@ def counters() -> Dict[str, int]:
     from rgnir_torch.kernels.pipeline import GRAPHS
 
     out = {f"graph.{k}": getattr(GRAPHS, k)
-           for k in ("eager_calls", "captures", "replays", "evictions")}
+           for k in ("eager_calls", "captures", "replays", "evictions", "in_place", "members",
+                     "eager_fallbacks")}
     for name, wrapper in WRAPPERS.items():
         out[f"launches.{name}"] = wrapper.launches
         out[f"replayed_launches.{name}"] = GRAPHS.replayed_launches.get(name, 0)

@@ -861,16 +861,21 @@ def test_cuda_replay_equals_eager(cuda, case):
 
 
 @pytest.mark.cuda
-def test_cuda_held_result_survives_the_next_call(cuda):
-    """The next replay overwrites the graph's outputs, not a result
-    already returned; a replay on another stream waits for the last."""
+def test_cuda_held_result_survives_the_next_call(cuda, monkeypatch):
+    """The next replay overwrites the outputs of a graph whose result is
+    dropped, not a result already returned: each call while every graph
+    of the key has a result held captures another graph; a replay on
+    another stream waits for all its graph's last stream had queued. (At
+    this shape every output would be small enough to be copied out; a
+    lower threshold hands the frames, maps and renders out in place.)"""
     from rgnir_torch.kernels import graph
     from rgnir_torch.kernels import pipeline as kp
 
+    monkeypatch.setattr(graph, "SMALL_OUTPUT_BYTES", 4096)
     kp.GRAPHS.clear()
     a, b = (torch.from_numpy(_frames(seed, REPLAY_SHAPE)).to(cuda) for seed in (31, 32))
     kp.analyze_image_kernel(a, kinds=KINDS)  # the key's first call, eager
-    c0 = kp.GRAPHS.captures
+    c0, m0 = kp.GRAPHS.captures, kp.GRAPHS.members
     first = kp.analyze_image_kernel(a, kinds=KINDS)
     assert kp.GRAPHS.captures == c0 + 1
     held = [t.clone() for t in graph.flatten(first)[0]]
@@ -881,11 +886,90 @@ def test_cuda_held_result_survives_the_next_call(cuda):
     torch.cuda.current_stream().wait_stream(side)
     third = kp.analyze_image_kernel(a, kinds=KINDS)
     torch.cuda.synchronize()
-    assert kp.GRAPHS.captures == c0 + 1
+    # first and second held: the second and third calls each captured a graph
+    assert kp.GRAPHS.captures == c0 + 3 and kp.GRAPHS.members == m0 + 2
     for t, h in zip(graph.flatten(first)[0], held):
         assert torch.equal(t, h)
-    chip_smoke.check_replay(torch, "second", second, kp._analyze_eager(b, kinds=KINDS), KINDS)
+    want_b = kp._analyze_eager(b, kinds=KINDS)
+    chip_smoke.check_replay(torch, "second", second, want_b, KINDS)
     chip_smoke.check_replay(torch, "third", third, first, KINDS)
+    # the second's graph, last replayed on the side stream, is free once
+    # its result is dropped: this stream's replay of it waits for that one
+    ring = kp.GRAPHS.ring(kp.GRAPHS.keys()[-1])
+    wb_second = second.wb.data_ptr()
+    del second
+    fourth = kp.analyze_image_kernel(b, kinds=KINDS)
+    torch.cuda.synchronize()
+    assert kp.GRAPHS.captures == c0 + 3 and fourth.wb.data_ptr() == wb_second
+    assert ring[1].stream == torch.cuda.current_stream()
+    chip_smoke.check_replay(torch, "fourth", fourth, want_b, KINDS)
+    for t, h in zip(graph.flatten(first)[0], held):
+        assert torch.equal(t, h)
+
+
+@pytest.mark.cuda
+def test_cuda_held_results_each_equal_their_own_eager_pass(cuda, monkeypatch):
+    """Results held through ``MAX_MEMBERS + 1`` calls of one key on
+    distinct frames (the last an eager fallback, every graph of the key
+    being held) each equal the eager pass of their own frames, every exact
+    field bit for bit; every replay handed its large outputs out in place
+    (all but the statistics, under a lower threshold at this shape)."""
+    from rgnir_torch.kernels import graph
+    from rgnir_torch.kernels import pipeline as kp
+
+    monkeypatch.setattr(graph, "SMALL_OUTPUT_BYTES", 4096)
+    kp.GRAPHS.clear()
+    n = graph.MAX_MEMBERS + 1
+    frames = [torch.from_numpy(_frames(50 + i, REPLAY_SHAPE)).to(cuda) for i in range(n)]
+    kp.analyze_image_kernel(frames[0], kinds=KINDS)  # the key's first call, eager
+    before = {k: getattr(kp.GRAPHS, k) for k in ("replays", "in_place", "members",
+                                                  "eager_fallbacks", "captures")}
+    held = [kp.analyze_image_kernel(f, kinds=KINDS) for f in frames]
+    torch.cuda.synchronize()
+    d = {k: getattr(kp.GRAPHS, k) - v for k, v in before.items()}
+    assert d == {"replays": n - 1, "in_place": n - 1, "members": n - 2, "eager_fallbacks": 1,
+                 "captures": n - 1}
+    assert len({r.indices[KINDS[0]].data_ptr() for r in held}) == n
+    for i, (f, r) in enumerate(zip(frames, held)):
+        chip_smoke.check_replay(torch, f"held result {i}", r, kp._analyze_eager(f, kinds=KINDS),
+                                KINDS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["replay", "eager fallback"])
+def test_cuda_dropped_result_frees_its_memory_without_the_collector(cuda, monkeypatch, path):
+    """With the cyclic collector off, the device memory a call allocated
+    for its result is free again once the result is dropped: a replay's
+    copied statistics, and an eager fallback's every output (the large
+    outputs handed out in place under a lower threshold at this shape)."""
+    import gc
+
+    from rgnir_torch.kernels import graph
+    from rgnir_torch.kernels import pipeline as kp
+
+    monkeypatch.setattr(graph, "SMALL_OUTPUT_BYTES", 4096)
+    kp.GRAPHS.clear()
+    img = torch.from_numpy(_frames(34, REPLAY_SHAPE)).to(cuda)
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        kp.analyze_image_kernel(img, kinds=KINDS)  # the key's first call, eager
+        held = ([kp.analyze_image_kernel(img, kinds=KINDS) for _ in range(graph.MAX_MEMBERS)]
+                if path == "eager fallback" else [])
+        f0 = kp.GRAPHS.eager_fallbacks
+        kp.analyze_image_kernel(img, kinds=KINDS)  # the graph's capture, or a first fallback
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        res = kp.analyze_image_kernel(img, kinds=KINDS)
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() > base
+        del res
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == base
+        assert kp.GRAPHS.eager_fallbacks - f0 == (2 if held else 0)
+    finally:
+        if was:
+            gc.enable()
 
 
 @pytest.mark.cuda

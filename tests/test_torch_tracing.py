@@ -185,6 +185,10 @@ def test_stream_off_takes_no_per_frame_time():
 
 class _FakeGraph:
     nbytes = 1
+    in_place_bytes = 0
+
+    def busy(self):
+        return False
 
     def replay(self, img):
         return "replay", img
@@ -229,7 +233,8 @@ def test_stage_timer_stages_are_batch_spans():
 
 def test_counters_have_the_documented_keys():
     c = profiling.counters()
-    want = {f"graph.{k}" for k in ("eager_calls", "captures", "replays", "evictions")}
+    want = {f"graph.{k}" for k in ("eager_calls", "captures", "replays", "evictions",
+                                   "in_place", "members", "eager_fallbacks")}
     want |= {f"{p}.{k}" for p in ("launches", "replayed_launches") for k in WRAPPERS}
     want |= {f"gc.collections.{g}" for g in range(len(gc.get_stats()))}
     if torch.cuda.is_available() and torch.cuda.is_initialized():
