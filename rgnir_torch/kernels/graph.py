@@ -441,11 +441,6 @@ class GraphCache:
         with self._lock:
             return list(self._entries)
 
-    def get(self, key: Hashable):
-        """The key's first graph, or None."""
-        ring = self._entries.get(key)
-        return ring[0] if ring else None
-
     def ring(self, key: Hashable) -> List[Any]:
         """The key's graphs, in the order they were captured."""
         return list(self._entries.get(key, ()))

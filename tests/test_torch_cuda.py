@@ -8,7 +8,8 @@ suite's conftest (which imports JAX):
 
 Tolerances are those of tests/torch_parity.py: exact for bytes, counts,
 min, max and the median; index maps within 1.2e-7; mean within 1e-5;
-variance within 1e-4.
+variance within 1e-4. The checks and synthetic inputs shared with
+``chip_smoke.py``'s kernel table are ``tests/torch_card.py``'s.
 """
 
 import os
@@ -29,15 +30,14 @@ from rgnir_torch.ops.wb import wb_bounds_from_histogram
 from rgnir_torch.pipeline.dispatch import analyze_image_auto
 from rgnir_torch.pipeline.fused import analyze_image
 
-import chip_smoke
-from chip_smoke import smooth_field
+import torch_card as tc
 from torch_parity import IDX_ATOL, MEAN_ATOL, VAR_ATOL
 
-KINDS = ("NDVI", "GNDVI", "NDWI")
+KINDS = tc.KINDS
 SHAPES = [(2, 64, 96), (1, 97, 333), (3, 97, 333)]
 # the kernels each configuration of the path launches
-DEFAULT_PATH = {"hist", "fused", "byte_hist", "q24_tail"}
-ONEPASS_PATH = {"hist", "fused", "q24_onepass"}
+DEFAULT_PATH = set(tc.DEFAULT_PATH)
+ONEPASS_PATH = set(tc.ONEPASS_PATH)
 
 
 def _frames(seed, shape):
@@ -89,19 +89,20 @@ def test_cuda_kernels_match_plain(cuda, shape):
         assert float((a[2] - b[2]).abs().max()) / n <= VAR_ATOL
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,skip,with_hist,with_renders", tc.PATH_SHAPE_CASES)
+def test_cuda_kernels_match_plain_at_the_paths_shapes(cuda, shape, skip, with_hist, with_renders):
+    """Every kernel of the path on uniform frames, the select's prefixes
+    from real picks: the stream's and the batch's batches in their modes,
+    odd sizes and an offset view (chip_smoke.py makes the same checks at
+    8 x 1024^2 before it times the kernels, and at these shapes after)."""
+    tc.kernel_checks(shape, skip, with_hist, with_renders)
+
+
 def _hist_fused_match_plain(img, kind_names, with_hist):
-    n = img.shape[1] * img.shape[2]
-    hist = tk.channel_histograms(img)
-    assert torch.equal(hist, thist.histograms_plain(img))
-    lo, hi = wb_bounds_from_histogram(hist, n=n)
     kinds = tuple(IndexKind.parse(k) for k in kind_names)
-    got = tk.fused_analyze(img, lo, hi, kinds, True, with_hist)
-    want = tfused.fused_analyze_plain(img, lo, hi, kinds, True, with_hist,
-                                      (True,) * len(kinds))
-    for name in ("wb", "rgb", "min", "max", "above", "r0") + (("hist50",) if with_hist else ()):
-        assert torch.equal(getattr(got, name), getattr(want, name)), name
-    assert float((got.idx - want.idx).abs().max()) <= IDX_ATOL
-    assert float((got.sum - want.sum).abs().max()) / n <= MEAN_ATOL
+    tc.check_hist_fused(f"{tuple(img.shape)} {kind_names}", img, kinds, (True,) * len(kinds),
+                        with_hist)
 
 
 @pytest.mark.cuda
@@ -117,17 +118,20 @@ def test_cuda_hist_fused_offset_view_match_plain(cuda, kind_names, with_hist):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 256, 384), (3, 97, 333)])
 def test_cuda_hist_fused_smooth_field_match_plain(cuda, shape):
-    """chip_smoke.py's smooth field: long runs of equal values, a
-    saturated and a black region (a + b == 0)."""
-    img = torch.from_numpy(smooth_field(shape, seed=14)).to(cuda)
+    """The smooth field: long runs of equal values, a saturated and a
+    black region (a + b == 0)."""
+    img = torch.from_numpy(tc.smooth_field(shape, seed=14)).to(cuda)
     _hist_fused_match_plain(img, KINDS, True)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("frames", ["seed 16", "uniform_frames"])
 @pytest.mark.parametrize("nk", [2, 4, 8])
-def test_cuda_fused_other_kind_counts_match_plain(cuda, nk):
+def test_cuda_fused_other_kind_counts_match_plain(cuda, nk, frames):
     """Two kinds (a template body) and four and eight (the generic one)."""
-    img = torch.from_numpy(_frames(16, (2, 97, 333))).to(cuda)
+    shape = (2, 97, 333)
+    img = (torch.from_numpy(_frames(16, shape)).to(cuda) if frames == "seed 16"
+           else tc.uniform_frames(shape))
     _hist_fused_match_plain(img, (KINDS * 3)[:nk], True)
 
 
@@ -176,20 +180,20 @@ ONEPASS_SHAPE = (2, 256, 384)
 
 
 def _onepass_rows(label, shape=ONEPASS_SHAPE):
-    """chip_smoke.py's one-pass inputs: the two canonical kinds' index maps
-    of uniform frames or of the smooth field, or constant rows (every
-    element in one bin), (2B, H*W)."""
-    return chip_smoke.onepass_inputs(torch, shape)[label]
+    """The one-pass inputs: the two canonical kinds' index maps of uniform
+    frames or of the smooth field, or constant rows (every element in one
+    bin), (2B, H*W)."""
+    return tc.onepass_inputs(shape)[label]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("label", ["uniform", "smooth", "constant"])
 def test_cuda_onepass_inputs_match_plain(cuda, label):
-    """The one-pass kernel on each of chip_smoke.py's inputs, with and
+    """The one-pass kernel on each of the one-pass inputs, with and
     without a row map: lo, nxt and eq_minus_rank exact."""
     rows = _onepass_rows(label)
-    chip_smoke.check_onepass(torch, label, rows)
-    chip_smoke.check_onepass(torch, f"{label} take (2, 1)", rows, (2, 1))
+    tc.check_onepass(label, rows)
+    tc.check_onepass(f"{label} take (2, 1)", rows, (2, 1))
 
 
 @pytest.mark.cuda
@@ -198,7 +202,7 @@ def test_cuda_onepass_inputs_match_plain(cuda, label):
 def test_cuda_onepass_odd_length_matches_plain(cuda, kw):
     """Rows of 4999 elements: not a multiple of 4, read one at a time."""
     rows = _onepass_rows("uniform", (3, 256, 384))[:, :4999].contiguous()
-    chip_smoke.check_onepass(torch, f"4999 {kw}", rows, **kw)
+    tc.check_onepass(f"4999 {kw}", rows, **kw)
 
 
 @pytest.mark.cuda
@@ -208,14 +212,8 @@ def test_cuda_onepass_n_valid_matches_plain(cuda, n_valid):
     mid-word), and masked_median_rows(n_valid=) through it equal to its
     3-pass select."""
     rows = _onepass_rows("uniform")
-    chip_smoke.check_onepass(torch, f"n_valid={n_valid}", rows, n_valid=n_valid)
-    r0, _, _, means = chip_smoke.onepass_setup(torch, rows, n_valid)
-    med1, ss1 = tk.masked_median_rows(rows, r0, means, onepass=True, n_valid=n_valid)
-    med3, ss3 = tk.masked_median_rows(rows, r0, means, onepass=False, n_valid=n_valid)
-    assert torch.equal(med1, med3)
-    assert float((ss1 - ss3).abs().max()) / n_valid <= VAR_ATOL
-    want = np.median(rows[:, :n_valid].cpu().numpy(), axis=1).astype(np.float32)
-    assert np.array_equal(med1.cpu().numpy(), want)
+    tc.check_onepass(f"n_valid={n_valid}", rows, n_valid=n_valid)
+    tc.check_median_rows_n_valid("", rows, n_valid)
 
 
 @pytest.mark.cuda
@@ -223,7 +221,7 @@ def test_cuda_onepass_over_table_rows_and_streams(cuda):
     """More selected rows than one launch's tables hold: one launch per
     ONEPASS_TABLE_ROWS rows, plain and with a row map; then on a second
     stream and back."""
-    b_sel, launches = chip_smoke.check_onepass_table_rows(torch)
+    b_sel, launches = tc.check_onepass_table_rows()
     assert launches == -(-b_sel // tselect.ONEPASS_TABLE_ROWS) > 1
 
 
@@ -231,8 +229,7 @@ def test_cuda_onepass_over_table_rows_and_streams(cuda):
 @pytest.mark.parametrize("shape", [(64, 96), (2, 64, 96)])
 def test_cuda_path_matches_plain_path(cuda, shape):
     img = _frames(10, shape)
-    got, _ = chip_smoke.count_launches(torch, tk.WRAPPERS, DEFAULT_PATH, "path",
-                                       lambda: analyze_image_auto(img, kinds=KINDS))
+    got, _ = tc.count_launches(DEFAULT_PATH, "path", lambda: analyze_image_auto(img, kinds=KINDS))
     want = analyze_image(img, kinds=KINDS)
     assert torch.equal(got.wb, want.wb)
     for k in KINDS:
@@ -248,13 +245,39 @@ def test_cuda_path_matches_plain_path(cuda, shape):
 @pytest.mark.cuda
 def test_cuda_onepass_path_matches_default_path(cuda):
     img = torch.from_numpy(_frames(13, (2, 64, 96))).to(cuda)
-    got, _ = chip_smoke.count_launches(
-        torch, tk.WRAPPERS, ONEPASS_PATH, "one-pass path",
-        lambda: analyze_image_kernel(img, kinds=KINDS, select_onepass=True))
+    got, _ = tc.count_launches(ONEPASS_PATH, "one-pass path",
+                               lambda: analyze_image_kernel(img, kinds=KINDS, select_onepass=True))
     want = analyze_image_kernel(img, kinds=KINDS)
     for k in KINDS:
         assert torch.equal(got.stats[k].median, want.stats[k].median), k
         assert float((got.stats[k].std ** 2 - want.stats[k].std ** 2).abs().max()) <= VAR_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("checks", sorted(tc.CHILD_CHECKS))
+def test_cuda_launches_equal_the_devices_records(cuda, checks):
+    """In a process of their own (late in a long one the profiler misses
+    records): "path_replays", (a), (b) and (a1) at 8 x 1024^2 against the
+    plain path, each warm replay's launches the graph's kernels and the
+    device's records; "compiled_entry", from an empty graph cache, (a),
+    (b), (a1), the stream's 8 x 1080p batch, one 1536 x 2048 frame and 9
+    kinds, each key's first call eager and its second captured, each
+    equal to _analyze_eager bit for bit, a held result unchanged by the
+    next call, the eager pass's and a replay's device records the graph's
+    kernels."""
+    tc.in_child(checks)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_select_matches_a_sort(cuda):
+    """masked_median and radix_order_statistic with the f32 key on the
+    path's index maps at 8 x 1024^2: four byte_hist rounds, a sort's."""
+    tc.run_f32_select()
+
+
+@pytest.mark.cuda
+def test_cuda_path_matches_numpy(cuda):
+    tc.check_numpy()
 
 
 # --- the validity modes and the sharded mosaic ---------------------------------
@@ -265,16 +288,20 @@ def test_cuda_hist_fused_n_valid_match_plain(cuda, n_valid):
     """The prefix ends mid-row and mid-word; the offset view puts every
     frame at another alignment."""
     img = torch.from_numpy(_frames(17, (4, 97, 333))).to(cuda)[1:]
-    assert torch.equal(tk.channel_histograms(img, n_valid=n_valid),
-                       thist.histograms_plain(img, n_valid))
     lo, hi = wb_bounds_from_histogram(tk.channel_histograms(img), n=97 * 333)
     kinds = tuple(IndexKind.parse(k) for k in KINDS)
-    got = tk.fused_analyze(img, lo, hi, kinds, n_valid=n_valid, bounds_nonneg=True)
-    want = tfused.fused_analyze_plain(img, lo, hi, kinds, True, True, (True,) * 3, n_valid)
-    for name in ("wb", "rgb", "min", "max", "above", "hist50", "r0"):
-        assert torch.equal(getattr(got, name), getattr(want, name)), name
-    assert float((got.idx - want.idx).abs().max()) <= IDX_ATOL
-    assert float((got.sum - want.sum).abs().max()) / max(n_valid, 1) <= MEAN_ATOL
+    tc.check_hist_fused_n_valid(f"offset view n_valid={n_valid}", img, lo, hi, kinds,
+                                (True,) * 3, n_valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 97, 333), tc.MAIN_SHAPE])
+def test_cuda_validity_modes_match_plain(cuda, shape):
+    """hist and fused with n_valid prefixes, byte_hist (q24 and f32 keys,
+    prefixes from real picks) and q24_tail with prefixes and live_rc
+    rectangles, on uniform frames and the smooth field; at the kernel
+    table's 8 x 1024^2 these are the checks its timings stand on."""
+    tc.validity_checks(shape)
 
 
 @pytest.mark.cuda
@@ -290,8 +317,7 @@ def test_cuda_byte_hist_validity_matches_plain(cuda, key_mode, shift, validity):
     keys = (q24_keys if key_mode == "q24" else ordered_u32_from_f32)(rows)
     prefix = keys[:, 11]
     kw = dict(validity, row_major_cols=333) if "live_rc" in validity else validity
-    assert torch.equal(tk.byte_hist(rows, prefix, shift, key_mode, **kw),
-                       tselect.byte_hist_plain(rows, prefix, shift, key_mode, **kw))
+    tc.check_byte_hist_validity("", rows, prefix, shift, key_mode, **kw)
 
 
 @pytest.mark.cuda
@@ -320,6 +346,15 @@ def test_cuda_mosaic_kernel_matches_jnp(cuda, shape, axes):
 
 
 @pytest.mark.cuda
+def test_cuda_mosaic_paths_match_jnp_and_one_frame(cuda):
+    """A 4093 x 4099 mosaic on four shards of the card, a (2, 2) mesh and
+    a pre-padded mosaic with valid_rows: the kernel body against the
+    plain body and the one-frame path, launches hist 4, fused 4,
+    byte_hist 8, q24_tail 4; the f32 sharded select on the same shards."""
+    tc.mosaic_paths()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("validity", [dict(n_valid=0), dict(n_valid=1), dict(n_valid=16150),
                                       dict(n_valid=97 * 333 - 1), dict(live_rc=(97, 300)),
                                       dict(live_rc=(96, 330)), dict(live_rc=(0, 333)),
@@ -333,26 +368,23 @@ def test_cuda_q24_tail_validity_matches_plain(cuda, validity):
     kp = q24_keys(rows)[:, 5].to(torch.int32)
     means = rows.mean(dim=1)
     kw = dict(validity, row_major_cols=333) if "live_rc" in validity else validity
-    got = tk.q24_tail(rows, kp, means, **kw)
-    want = tselect.q24_tail_plain(rows, kp, means, **kw)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert float((got[2] - want[2]).abs().max()) / rows.shape[1] <= VAR_ATOL
+    tc.check_q24_tail_validity("", rows, kp, means, per=rows.shape[1], **kw)
 
 
 @pytest.mark.cuda
 def test_cuda_many_kinds_match_plain(cuda):
     """9 and 17 kinds through fused_analyze, analyze_image_auto and both
-    mosaic kernel bodies: chip_smoke.py's phase, one fused launch per
-    group of at most 8 kinds."""
-    chip_smoke.many_kinds_checks(torch, tk.WRAPPERS)
+    mosaic kernel bodies, one fused launch per group of at most 8
+    kinds."""
+    tc.many_kinds_checks()
 
 
 @pytest.mark.cuda
 def test_cuda_frame_above_2_29_pixels(cuda):
     """A frame of 2^29 + 16,381 pixels: hist and fused against their plain
-    versions in bands, and the mosaic's kernel body on one shard against
-    four: chip_smoke.py's phase."""
-    chip_smoke.big_frame_checks(torch, tk.WRAPPERS, "")
+    versions in bands, the mosaic's kernel body on one shard against
+    four, and analyze_image_auto's replays against its eager call."""
+    tc.big_frame_checks()
 
 
 @pytest.mark.cuda
@@ -369,12 +401,11 @@ def test_cuda_stream_rings_match_plain(cuda):
     from rgnir_torch.native import FrameRing
     from rgnir_torch.pipeline.streaming import StreamAnalyzer
 
-    per_ring, shape = 20, chip_smoke.STREAM_SHAPE + (3,)
-    analyzer = StreamAnalyzer(frame_shape=chip_smoke.STREAM_SHAPE, kinds=KINDS, batch=8,
-                              depth=1)
+    per_ring, shape = 20, tc.STREAM_SHAPE + (3,)
+    analyzer = StreamAnalyzer(frame_shape=tc.STREAM_SHAPE, kinds=KINDS, batch=8, depth=1)
     assert len(analyzer._slots) == 2 and analyzer._slots[0].is_pinned()
 
-    frames = [[chip_smoke.stream_frame(si, seq) for seq in range(per_ring)] for si in range(2)]
+    frames = [[tc.stream_frame(si, seq) for seq in range(per_ring)] for si in range(2)]
 
     def produce(ring, si):
         for frame in frames[si]:
@@ -387,9 +418,8 @@ def test_cuda_stream_rings_match_plain(cuda):
         threads = [threading.Thread(target=produce, args=(r, si)) for si, r in enumerate((r0, r1))]
         for t in threads:
             t.start()
-        got, launches, dispatches = chip_smoke.stream_launches(
-            torch, tk.WRAPPERS, "stream", analyzer,
-            lambda: list(analyzer.run_from_rings([r0, r1])))
+        got, launches, dispatches = tc.stream_launches(
+            "stream", analyzer, lambda: list(analyzer.run_from_rings([r0, r1])))
         for t in threads:
             t.join(timeout=60)
             assert not t.is_alive()
@@ -397,7 +427,17 @@ def test_cuda_stream_rings_match_plain(cuda):
     for si in range(2):
         assert [seq for s, seq, _ in got if s == si] == list(range(per_ring))
     assert [r.frame_id for _, _, r in got] == list(range(2 * per_ring))
-    chip_smoke.check_stream_results(torch, "stream", got, KINDS)
+    tc.check_stream_results("stream", got, KINDS)
+
+
+@pytest.mark.cuda
+def test_cuda_stream_session_from_spawned_producers_matches_plain(cuda):
+    """Four spawned producers push 24 1080p frames each into their own
+    ring, read by one batch-8 analyzer (with its launches counted, then
+    without the profiler); one producer at 30 fps into a batch-1, depth-2
+    analyzer; three frames from two rings in one partial batch. Every
+    frame arrives in its ring's order, equal to the plain path."""
+    tc.stream_checks()
 
 
 @pytest.mark.cuda
@@ -413,7 +453,7 @@ def test_cuda_paced_stream_hands_out_finished_batches(cuda):
     from rgnir_torch.utils import profiling
 
     fps, n_frames, pool_size = 300, 600, 16
-    pool = [chip_smoke.stream_frame(0, seq) for seq in range(pool_size)]
+    pool = [tc.stream_frame(0, seq) for seq in range(pool_size)]
     ref = {}
     for i in range(0, pool_size, 8):
         stats = analyze_image(np.stack(pool[i:i + 8]), kinds=KINDS, with_renders=False,
@@ -422,7 +462,7 @@ def test_cuda_paced_stream_hands_out_finished_batches(cuda):
             ref[i + j] = {k: type(r)(**{f: None if getattr(r, f) is None else getattr(r, f)[j]
                                         for f in r.__dataclass_fields__})
                           for k, r in stats.items()}
-    an = StreamAnalyzer(frame_shape=chip_smoke.STREAM_SHAPE, kinds=KINDS, batch=8, depth=2)
+    an = StreamAnalyzer(frame_shape=tc.STREAM_SHAPE, kinds=KINDS, batch=8, depth=2)
     an.warmup()
     limit = an.depth * an.batch
     got, early = [], 0
@@ -456,8 +496,8 @@ def test_cuda_paced_stream_hands_out_finished_batches(cuda):
     assert early >= 0.9 * (n_frames - n_drained), (early, n_drained)
     for res in got:
         for k in KINDS:
-            chip_smoke.check_stats(torch, f"paced frame {res.frame_id} {k}", res.stats[k],
-                                   ref[res.frame_id % pool_size][k], with_hist=False)
+            tc.check_stats(f"paced frame {res.frame_id} {k}", res.stats[k],
+                           ref[res.frame_id % pool_size][k], with_hist=False)
     held = sorted(s.seconds for s in rec.named("stream.held"))
     assert len(held) == n_frames
     p95 = held[int(0.95 * (len(held) - 1))]
@@ -471,10 +511,9 @@ def _batch_dir(root):
 
     root.mkdir()
     for i in range(5):
-        Image.fromarray(chip_smoke.survey_frame(i, (64, 96))).save(root / f"a{i}.png")
+        Image.fromarray(tc.survey_frame(i, (64, 96))).save(root / f"a{i}.png")
     for i in range(2):
-        Image.fromarray(chip_smoke.survey_frame(5 + i, (48, 80))).save(root / f"b{i}.jpg",
-                                                                       quality=90)
+        Image.fromarray(tc.survey_frame(5 + i, (48, 80))).save(root / f"b{i}.jpg", quality=90)
     (root / "broken.png").write_bytes(b"corrupt")
     return root
 
@@ -511,15 +550,15 @@ def test_cuda_batch_matches_cpu(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(BatchLoader, "__iter__", batches)
     torch.zeros(1, device=cuda)  # the host allocator's statistics need CUDA initialised
     pinned_before = torch.cuda.host_memory_stats()["allocated_bytes.current"]
-    gpu, launches = chip_smoke.count_launches(
-        torch, tk.WRAPPERS, DEFAULT_PATH, "batch",
+    gpu, launches = tc.count_launches(
+        DEFAULT_PATH, "batch",
         lambda: tbatch.batch_process(src, tmp_path / "gpu", save_wb=True, indices=KINDS,
                                      loader_cfg=cfg))
     assert pinned and all(pinned)
     assert gpu["batches"] == cpu["batches"] == 4 and gpu["pinned_peak_bytes"] > 0
     # every pinned buffer was released, not left in the host allocator's cache
     assert torch.cuda.host_memory_stats()["allocated_bytes.current"] <= pinned_before
-    assert launches == {k: 4 * v for k, v in chip_smoke.STREAM_LAUNCHES.items()}
+    assert launches == {k: 4 * v for k, v in tc.GROUP_LAUNCHES.items()}
     assert (gpu["processed"], gpu["skipped"]) == (cpu["processed"], cpu["skipped"]) == (7, 0)
     assert [p.name for p, _ in gpu["failed"]] == [p.name for p, _ in cpu["failed"]] == [
         "broken.png"]
@@ -530,6 +569,16 @@ def test_cuda_batch_matches_cpu(cuda, tmp_path, monkeypatch):
                            if p.name != ".manifest.jsonl")
     for rel in files:
         assert (tmp_path / "gpu" / rel).read_bytes() == (tmp_path / "cpu" / rel).read_bytes(), rel
+
+
+@pytest.mark.cuda
+def test_cuda_batch_directory_matches_plain(cuda, tmp_path):
+    """16 TIFFs of 1536 x 2048, 8 JPEGs of 1080 x 1920, a PNG, a truncated
+    TIFF and a text file named .jpg: every output of a run with the WB
+    frames against the plain path byte for byte, three dispatches of the
+    path's launches; a resumed run launches nothing; a run without the
+    WB frames leaves nothing pinned."""
+    tc.batch_checks(tmp_path)
 
 
 def _spin_seconds(cycles):
@@ -643,92 +692,116 @@ def test_cuda_white_balance_alone_matches_plain(cuda):
     """No kinds (a batch run writing only the WB frames): the kernel path
     launches hist and fused, and its WB bytes are the plain path's."""
     img = torch.from_numpy(_frames(13, (2, 97, 333))).to(cuda)
-    res, launches = chip_smoke.count_launches(
-        torch, tk.WRAPPERS, ("hist", "fused"), "white balance alone",
-        lambda: analyze_image_auto(img, kinds=()))
+    res, launches = tc.count_launches(("hist", "fused"), "white balance alone",
+                                      lambda: analyze_image_auto(img, kinds=()))
     assert launches["hist"] == 1 and launches["fused"] == 1
     assert not res.indices and not res.renders and not res.stats
     assert torch.equal(res.wb, analyze_image(img, kinds=(), device=cuda).wb)
 
 
 def _flow_frames(shape=(512, 640), shift=(3, -4), step=(1, -2), dates=4):
-    """chip_smoke.py's phase 4f inputs at a smaller size: frame 0, late
-    moved by twice ``shift``, and ``dates`` dates moved by twice
-    ``step`` each (the flows downscale by 2 to a cap of 320)."""
-    early = chip_smoke.survey_frame(0, shape)
-    late = chip_smoke.displaced(early, 2 * shift[0], 2 * shift[1], seed=1, change=True)
-    series = [early] + [chip_smoke.displaced(early, 2 * k * step[0], 2 * k * step[1],
-                                             seed=1 + k, change=k >= dates // 2)
+    """The flows' inputs at a smaller size: frame 0, late moved by twice
+    ``shift``, and ``dates`` dates moved by twice ``step`` each (the flows
+    downscale by 2 to a cap of 320)."""
+    early = tc.survey_frame(0, shape)
+    late = tc.displaced(early, 2 * shift[0], 2 * shift[1], seed=1, change=True)
+    series = [early] + [tc.displaced(early, 2 * k * step[0], 2 * k * step[1],
+                                     seed=1 + k, change=k >= dates // 2)
                         for k in range(1, dates)]
     return early, late, series
 
 
+# the flows at 512 x 640 (a cap of 320), and at the survey size, 1536 x 2048
+# (a cap of 1024, 8 dates: tc.flow_inputs)
+FLOW_SIZES = ["512x640", "1536x2048"]
+
+
+def _flow_case(size):
+    """(early, late, dates, planted shift, step, refine tile, cap)."""
+    if size == "1536x2048":
+        early, late, series = tc.flow_inputs()
+        return early, late, series, tc.FLOW_SHIFT, tc.FLOW_STEP, tc.FLOW_TILE, tc.FLOW_MAX_DIM
+    early, late, series = _flow_frames()
+    return early, late, series, (3, -4), (1, -2), 128, 320
+
+
 @pytest.mark.cuda
-def test_cuda_change_detection_matches_cpu(cuda):
+@pytest.mark.parametrize("size", FLOW_SIZES)
+def test_cuda_change_detection_matches_cpu(cuda, size):
     """Integer, upsampled and tiled change detection on the card: the
     planted shift exact, the maps the CPU's, no kernel of the path."""
-    early, late, _ = _flow_frames()
-    lines = chip_smoke.change_checks(torch, tk.WRAPPERS, early, late, (3, -4), 128, max_dim=320)
+    early, late, _, shift, _, tile, cap = _flow_case(size)
+    lines = tc.change_checks(early, late, shift, tile, max_dim=cap)
     assert len(lines) == 4
 
 
 @pytest.mark.cuda
-def test_cuda_change_series_matches_cpu(cuda):
+@pytest.mark.parametrize("size", FLOW_SIZES)
+def test_cuda_change_series_matches_cpu(cuda, size):
     from rgnir_torch.ops.resize import preprocess_large_image
 
-    _, _, series = _flow_frames()
-    stack = torch.stack([preprocess_large_image(torch.from_numpy(f).to(cuda), 320)
+    _, _, series, _, step, _, cap = _flow_case(size)
+    stack = torch.stack([preprocess_large_image(torch.from_numpy(f).to(cuda), cap)
                          for f in series])
-    chip_smoke.series_checks(torch, tk.WRAPPERS, stack, (1, -2))
+    tc.series_checks(stack, step)
 
 
 @pytest.mark.cuda
-def test_cuda_time_series_matches_cpu(cuda):
-    """Two shape groups: one analyze_image_auto call each."""
-    _, _, series = _flow_frames()
-    series[1] = chip_smoke.survey_frame(5, (480, 640))
-    chip_smoke.timeseries_checks(torch, tk.WRAPPERS, series, groups=2, max_dim=320)
+@pytest.mark.parametrize("size", FLOW_SIZES)
+def test_cuda_time_series_matches_cpu(cuda, size):
+    """One analyze_image_auto call per shape group: two at the small size,
+    one at the survey size."""
+    _, _, series, _, _, _, cap = _flow_case(size)
+    groups = 1
+    if size == "512x640":
+        series[1] = tc.survey_frame(5, (480, 640))
+        groups = 2
+    tc.timeseries_checks(series, groups=groups, max_dim=cap)
 
 
 @pytest.mark.cuda
-def test_cuda_comparison_matches_cpu(cuda):
-    images = [("a.tif", chip_smoke.survey_frame(0, (512, 640))),
-              ("b.tif", chip_smoke.survey_frame(1, (512, 640))),
-              ("a.tif", chip_smoke.survey_frame(2, (512, 640))),
-              ("c.jpg", chip_smoke.survey_frame(3, (480, 640)))]
-    chip_smoke.compare_checks(torch, tk.WRAPPERS, images, KINDS, groups=2, max_dim=320)
+@pytest.mark.parametrize("size", FLOW_SIZES)
+def test_cuda_comparison_matches_cpu(cuda, size):
+    """Four images in two shape groups, two of them named alike."""
+    if size == "1536x2048":
+        tc.compare_checks(tc.compare_inputs(), KINDS, groups=2)
+        return
+    images = [("a.tif", tc.survey_frame(0, (512, 640))),
+              ("b.tif", tc.survey_frame(1, (512, 640))),
+              ("a.tif", tc.survey_frame(2, (512, 640))),
+              ("c.jpg", tc.survey_frame(3, (480, 640)))]
+    tc.compare_checks(images, KINDS, groups=2, max_dim=320)
 
 
 @pytest.mark.cuda
 def test_cuda_jointhist_matches_plain(cuda):
-    """Phase 4g (i) at a band of 64 x 1024: uniform bytes with 1-5 and 8
-    pairs (repeated and (a, a) pairs), first channels all >= 128 and all
-    < 128, smooth, constant, a quarter band at its offset, C = 1 and 4,
-    odd lengths of 3 and 2 channels, 3 pixels, an odd address."""
-    r = chip_smoke.jointhist_checks(torch, chip_smoke.Timer(torch),
-                                    chip_smoke.card_rates(torch.cuda.get_device_name(0)),
-                                    band_shape=(64, 1024))
-    assert r["max_abs_err"] == 0.0 and r["bound"][1] == "bytes"
+    """At a band of 64 x 1024: uniform bytes with 1-5 and 8 pairs
+    (repeated and (a, a) pairs), first channels all >= 128 and all < 128,
+    smooth, constant, a quarter band at its offset, C = 1 and 4, odd
+    lengths of 3 and 2 channels, 3 pixels, an odd address (chip_smoke.py
+    makes the same checks on its 2048 x 32768 band before it times it)."""
+    tc.jointhist_checks(band_shape=(64, 1024))
 
 
 @pytest.mark.cuda
 def test_cuda_value_grid_equals_fused(cuda):
-    chip_smoke.value_grid_checks(torch)
+    tc.value_grid_checks()
 
 
 @pytest.mark.cuda
-def test_cuda_streamed_mosaic_matches_host_and_frame(cuda):
-    """Phase 4g (iii)-(v) at 2048^2 in bands of 256 rows: the device
-    reduction against the host one and the whole frame, four shards
-    against one, one band three times."""
-    launches = chip_smoke.streamed_mosaic_checks(torch, tk.WRAPPERS, "", side=2048,
-                                                 band_rows=256, repeats=3)
-    assert launches["jointhist"] == 8
+@pytest.mark.parametrize("side,band_rows,repeats", [(2048, 256, 3), (32768, 2048, 33)])
+def test_cuda_streamed_mosaic_matches_host_and_frame(cuda, side, band_rows, repeats):
+    """The device reduction against the host one and the whole frame,
+    from pinned memory through one session, four shards against one, one
+    band repeated: at 2048^2 in bands of 256 rows, and at 32768^2 in 16
+    bands of 2048 rows, one band 33 times (2.21 GPix, above 2^31)."""
+    launches = tc.streamed_mosaic_checks(side=side, band_rows=band_rows, repeats=repeats)
+    assert launches["jointhist"] == side // band_rows
 
 
 @pytest.mark.cuda
-def test_cuda_single_image_flows_match_cpu(cuda):
-    chip_smoke.single_flow_checks(torch, tk.WRAPPERS)
+def test_cuda_single_image_flows_match_cpu(cuda, tmp_path):
+    tc.single_flow_checks(tmp_path)
 
 
 @pytest.mark.cuda
@@ -737,8 +810,8 @@ def test_cuda_kernel_path_without_wb_matches_plain(cuda, shape):
     """with_wb=False: no hist launch; the fused kernel with identity
     bounds equals the plain path on the raw bands."""
     img = torch.from_numpy(_frames(14, shape)).to(cuda)
-    got, launches = chip_smoke.count_launches(
-        torch, tk.WRAPPERS, DEFAULT_PATH - {"hist"}, "without wb",
+    got, launches = tc.count_launches(
+        DEFAULT_PATH - {"hist"}, "without wb",
         lambda: analyze_image_kernel(img, kinds=KINDS, with_wb=False))
     want = analyze_image(img, kinds=KINDS, with_wb=False, device=cuda)
     assert torch.equal(got.wb, img)
@@ -769,20 +842,66 @@ def test_cuda_change_series_one_frame_is_empty(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_change_detection_mosaic_matches_plain(cuda):
+@pytest.mark.parametrize("shape,tile", [((512, 768), (128, 128)), (tc.SHARD_SHAPE, tc.SHARD_TILE)])
+def test_cuda_change_detection_mosaic_matches_plain(cuda, shape, tile):
     """Full-resolution sharded change detection on four shards of the
     card (1-D and (2, 2)), integer, upsampled, with a tile field, grown
     and saturated: equal to one shard of the card, within the contract
     of four CPU shards, byte_hist launched 16 times a body run (32 after
     one halo growth) and nothing else, its f32 rounds equal to their
-    plain version in both validity modes (chip_smoke's phase 4h at 512 x
-    768)."""
-    early = chip_smoke.survey_frame(0, (512, 768))
-    late = chip_smoke.displaced(early, 9, -14, seed=100, change=True)
-    _, launches, ref = chip_smoke.sharded_change_checks(torch, tk.WRAPPERS, early, late,
-                                                        (9, -14), tile=(128, 128), halo=8)
+    plain version in both validity modes; at 512 x 768 and at the survey
+    frame's 1536 x 2048."""
+    early, late = tc.shard_inputs(shape)
+    launches, ref = tc.sharded_change_checks(early, late, (9, -14), tile=tile, halo=8)
     assert launches == {"n_valid": 16, "live_rc": 16}
     assert ref.shift.tolist() == [9.0, -14.0]
+
+
+@pytest.mark.cuda
+def test_cuda_data_plane_at_world_size_1_over_nccl(cuda, tmp_path):
+    """initialize over a file store, NCCL on the card; a mosaic and the
+    full-resolution change pair through padded_height, process_row_band
+    and mosaic_from_local_rows onto four shards, equal to the same calls
+    on the shards directly."""
+    tc.data_plane_checks(tmp_path)
+
+
+@pytest.mark.cuda
+def test_cuda_orthomosaic_pair_on_one_and_four_shards(cuda):
+    """An 8192^2 pair made on the card with a planted (21, -37), integer
+    and local_tile: the plant exact, four shards equal to one bit for
+    bit, byte_hist 4 a shard and nothing else."""
+    tc.ortho_checks()
+
+
+@pytest.mark.cuda
+def test_cuda_cli_subcommands_match_library_calls(cuda, tmp_path):
+    """Every subcommand through rgnir_torch.cli.main on the card, each
+    against its direct library call, launches pinned (report only where
+    matplotlib imports)."""
+    tc.cli_checks(tmp_path)
+
+
+@pytest.mark.cuda
+def test_cuda_app_session_matches_pipelines(cuda, tmp_path):
+    tc.app_checks(tmp_path)
+
+
+@pytest.mark.cuda
+def test_cuda_tune_winners_equal_default_grids(cuda, tmp_path):
+    tc.tune_checks(tmp_path)
+
+
+@pytest.mark.cuda
+def test_cuda_warmup_check_builds_nothing(cuda):
+    tc.warmup_checks()
+
+
+@pytest.mark.cuda
+def test_cuda_selftest_passes(cuda):
+    from rgnir_torch.testing import selftest
+
+    assert selftest.main() == 0
 
 
 @pytest.mark.cuda
@@ -823,7 +942,7 @@ def _replay_cases():
         "a": dict(kinds=KINDS),
         "b": dict(kinds=("NDVI",), with_hist=False),
         "a1": dict(kinds=KINDS, select_onepass=True),
-        "9 kinds": dict(kinds=tuple(chip_smoke.many_kinds(9))),
+        "9 kinds": dict(kinds=tuple(tc.many_kinds(9))),
         "custom": dict(kinds=("NDVI", "CUDA_GRAPH_RG"), with_renders=False),
     }
 
@@ -835,8 +954,9 @@ def test_cuda_replay_equals_eager(cuda, case):
     it, and its replay's result equals the eager pass's on every exact
     field; the graph holds the kernels the eager pass launched, and a third
     call captures nothing. (A replay's launches read from the profiler:
-    ``chip_smoke.py`` phase 4j, in a process of its own; late in a long
-    one, as this suite's, the profiler misses records.)"""
+    ``test_cuda_launches_equal_the_devices_records``, in a process of its
+    own; late in a long one, as this suite's, the profiler misses
+    records.)"""
     from rgnir_torch.config import register_index
     from rgnir_torch.kernels import pipeline as kp
 
@@ -850,13 +970,13 @@ def test_cuda_replay_equals_eager(cuda, case):
     eager = {k: w.launches - before[k] for k, w in tk.WRAPPERS.items()
              if w.launches != before[k]}
     e0, c0 = kp.GRAPHS.eager_calls, kp.GRAPHS.captures
-    chip_smoke.check_replay(torch, case, kp.analyze_image_kernel(img, **kw), want, kinds)
+    tc.check_replay(case, kp.analyze_image_kernel(img, **kw), want, kinds)
     assert (kp.GRAPHS.eager_calls, kp.GRAPHS.captures) == (e0 + 1, c0)
-    chip_smoke.check_replay(torch, case, kp.analyze_image_kernel(img, **kw), want, kinds)
+    tc.check_replay(case, kp.analyze_image_kernel(img, **kw), want, kinds)
     assert kp.GRAPHS.captures == c0 + 1
-    entry = kp.GRAPHS.get(kp.GRAPHS.keys()[-1])
+    entry = kp.GRAPHS.ring(kp.GRAPHS.keys()[-1])[0]
     assert entry.graph_launches and entry.graph_launches == eager
-    chip_smoke.check_replay(torch, case, kp.analyze_image_kernel(img, **kw), want, kinds)
+    tc.check_replay(case, kp.analyze_image_kernel(img, **kw), want, kinds)
     assert (kp.GRAPHS.eager_calls, kp.GRAPHS.captures) == (e0 + 1, c0 + 1)
 
 
@@ -891,8 +1011,8 @@ def test_cuda_held_result_survives_the_next_call(cuda, monkeypatch):
     for t, h in zip(graph.flatten(first)[0], held):
         assert torch.equal(t, h)
     want_b = kp._analyze_eager(b, kinds=KINDS)
-    chip_smoke.check_replay(torch, "second", second, want_b, KINDS)
-    chip_smoke.check_replay(torch, "third", third, first, KINDS)
+    tc.check_replay("second", second, want_b, KINDS)
+    tc.check_replay("third", third, first, KINDS)
     # the second's graph, last replayed on the side stream, is free once
     # its result is dropped: this stream's replay of it waits for that one
     ring = kp.GRAPHS.ring(kp.GRAPHS.keys()[-1])
@@ -902,7 +1022,7 @@ def test_cuda_held_result_survives_the_next_call(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert kp.GRAPHS.captures == c0 + 3 and fourth.wb.data_ptr() == wb_second
     assert ring[1].stream == torch.cuda.current_stream()
-    chip_smoke.check_replay(torch, "fourth", fourth, want_b, KINDS)
+    tc.check_replay("fourth", fourth, want_b, KINDS)
     for t, h in zip(graph.flatten(first)[0], held):
         assert torch.equal(t, h)
 
@@ -931,7 +1051,7 @@ def test_cuda_held_results_each_equal_their_own_eager_pass(cuda, monkeypatch):
                  "captures": n - 1}
     assert len({r.indices[KINDS[0]].data_ptr() for r in held}) == n
     for i, (f, r) in enumerate(zip(frames, held)):
-        chip_smoke.check_replay(torch, f"held result {i}", r, kp._analyze_eager(f, kinds=KINDS),
+        tc.check_replay(f"held result {i}", r, kp._analyze_eager(f, kinds=KINDS),
                                 KINDS)
 
 
@@ -1002,8 +1122,8 @@ def test_cuda_capture_failure_raises_without_fallback(cuda, monkeypatch):
     got = kp.analyze_image_kernel(img, kinds=("NDVI",))  # the process goes on
     assert len(kp.GRAPHS) == 1
     want = real(img, kinds=("NDVI",))
-    chip_smoke.check_replay(torch, "after a failed capture", got, want, ("NDVI",))
-    chip_smoke.check_replay(torch, "the first call", first, want, ("NDVI",))
+    tc.check_replay("after a failed capture", got, want, ("NDVI",))
+    tc.check_replay("the first call", first, want, ("NDVI",))
 
 
 @pytest.mark.cuda

@@ -16,7 +16,8 @@ limit, held results intact when graphs are dropped, the counters) and
 still equals the JAX package's ``analyze_image_kernel`` (Pallas in
 interpret mode) under the contract of ``tests/test_kernels.py``. The
 replays themselves are held against the eager pass on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 4j).
+(``tests/test_torch_cuda.py``, whose compiled-entry check ``chip_smoke.py``
+also runs).
 """
 
 import gc

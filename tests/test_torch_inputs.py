@@ -42,7 +42,7 @@ from rgnir_torch.kernels import fused as tfused
 from rgnir_torch.kernels import hist as thist
 from rgnir_torch.pipeline.dispatch import analyze_image_auto
 
-from chip_smoke import smooth_field
+from torch_card import smooth_field
 from torch_parity import IDX_ATOL, MEAN_ATOL, assert_result_matches, host
 
 KINDS = ("NDVI", "GNDVI", "NDWI")

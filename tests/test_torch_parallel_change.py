@@ -544,7 +544,7 @@ def test_strided_proxy_misses_an_odd_shift_as_jax_does():
     the noise of the two strided grids being disjoint; both packages
     give the same wrong shift, and ``proxy_stride=1`` recovers the
     plant exactly in both."""
-    from chip_smoke import displaced, survey_frame
+    from torch_card import displaced, survey_frame
 
     early = survey_frame(0, (1024, 256))
     late = displaced(early, 9, -14, seed=100, change=True)

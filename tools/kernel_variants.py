@@ -11,15 +11,16 @@ stages) or the body of one helper (how a byte or a bin is counted). A substituti
 longer in the source raises, so the list cannot drift from the kernels
 silently. The variants build side by side with ``nvcc`` into ``build/kernel_variants/``, one
 process each, and run through the package's own wrappers, so a time here
-means what ``chip_smoke.py``'s means: the median of 20 launches, L2
-flushed before each, the stream held so that only device time counts.
+means what ``chip_smoke.py``'s kernel table means (``tools/card_timing.py``'s
+``Timer``): the median of 20 launches, L2 flushed before each, the stream
+held so that only device time counts.
 
 Every hist and fused variant runs on two inputs at 8 x 1024^2 x 3:
-uniform random bytes and ``chip_smoke.py``'s smooth field (long runs of
+uniform random bytes and the smooth field (long runs of
 equal values, a saturated and a black region), in turns with the shipped
 kernel; the one-pass select's on the (a1) path's rows of those two and
-of a constant frame (``chip_smoke.onepass_inputs``); jointhist's on
-``chip_smoke.py``'s two 2048 x 32768 x 3 bands with the main path's two
+of a constant frame (``tests/torch_card.py``'s ``onepass_inputs``);
+jointhist's on two 2048 x 32768 x 3 bands (``jointhist_bands``) with the main path's two
 pairs (``--only jointhist``, not part of the default run). A variant that is a
 design candidate is held against the plain version first; one marked
 ``diagnostic`` leaves work out on purpose (no shared atomics, no render
@@ -40,7 +41,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 KINDS = ("NDVI", "GNDVI", "NDWI")
 SHAPE = (8, 1024, 1024)
@@ -521,8 +522,8 @@ def sass_report(out_dir: str) -> None:
 
 # --- timing --------------------------------------------------------------------------
 
-def onepass_variants(torch, cs, out_dir) -> int:
-    """The one-pass select's diagnostic on chip_smoke.py's three inputs at
+def onepass_variants(torch, ct, tc, out_dir) -> int:
+    """The one-pass select's diagnostic on the one-pass inputs at
     the (a1) path's rows (uniform, smooth and constant), in turns with the
     shipped kernel."""
     from rgnir_torch.kernels import _build
@@ -532,9 +533,9 @@ def onepass_variants(torch, cs, out_dir) -> int:
     _build.build(("hist", "fused", "onepass"))
     paths = build_variants("onepass", ONEPASS_VARIANTS, out_dir)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    timer = cs.Timer(torch)
-    rows = cs.onepass_inputs(torch, SHAPE)
-    args = {label: cs.onepass_setup(torch, r)[1:] for label, r in rows.items()}
+    timer = ct.Timer()
+    rows = tc.onepass_inputs(SHAPE)
+    args = {label: tc.onepass_setup(r)[1:] for label, r in rows.items()}
     shipped = _build.library("onepass")
     print(f"\nq24_onepass: ms on uniform / smooth / constant rows {tuple(rows['uniform'].shape)}; "
           f"shipped kernel timed before and after each variant", flush=True)
@@ -557,8 +558,8 @@ def onepass_variants(torch, cs, out_dir) -> int:
     return 0
 
 
-def jointhist_variants(torch, cs, out_dir) -> int:
-    """The jointhist kernel's variants on chip_smoke.py's two timed bands
+def jointhist_variants(torch, ct, tc, out_dir) -> int:
+    """The jointhist kernel's variants on the kernel table's two timed bands
     (uniform bytes and the smooth field, 2048 x 32768 x 3, the main
     path's two pairs), in turns with the shipped kernel. A design
     candidate is first held exactly against the plain version on both
@@ -570,18 +571,18 @@ def jointhist_variants(torch, cs, out_dir) -> int:
     t0 = time.perf_counter()
     _build.build(("jointhist",))
     paths = build_variants("jointhist", JOINTHIST_VARIANTS, out_dir)
-    print(f"build: {time.perf_counter() - t0:.1f} s; shipped: {cs.ptxas_report('jointhist')}",
+    print(f"build: {time.perf_counter() - t0:.1f} s; shipped: {ct.ptxas_report('jointhist')}",
           flush=True)
-    timer = cs.Timer(torch)
-    bands = cs.jointhist_bands(torch)
-    odd = bands["uniform"][:cs.JOINT_ODD_N]
-    pairs = cs.JOINT_PAIRS[2]
+    timer = ct.Timer()
+    bands = tc.jointhist_bands()
+    odd = bands["uniform"][:tc.JOINT_ODD_N]
+    pairs = tc.JOINT_PAIRS[2]
     acc = torch.zeros(len(pairs), 256, 256, dtype=torch.int32, device="cuda")
 
     def check(flat, prs):
         out = torch.zeros(len(prs), 256, 256, dtype=torch.int32, device="cuda")
         kj.joint_histograms(flat, prs, out)
-        cs.check_equal(torch, f"jointhist {tuple(flat.shape)} {prs}", out,
+        tc.check_equal(f"jointhist {tuple(flat.shape)} {prs}", out,
                        kj.joint_histograms_plain(flat, prs, torch.zeros_like(out)))
 
     shipped = _build.library("jointhist")
@@ -595,7 +596,7 @@ def jointhist_variants(torch, cs, out_dir) -> int:
                 _build._LIBS["jointhist"] = lib
                 for flat in bands.values():
                     check(flat, pairs)
-                check(odd, cs.JOINT_PAIRS[8])
+                check(odd, tc.JOINT_PAIRS[8])
             for label, band in bands.items():
                 fn = (lambda band=band: kj.joint_histograms(band, pairs, acc))
                 _build._LIBS["jointhist"] = shipped
@@ -623,7 +624,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 2
-    import chip_smoke as cs
+    import card_timing as ct
+    import torch_card as tc
     from rgnir_torch.config import IndexKind
     from rgnir_torch.kernels import _build
     from rgnir_torch.kernels import fused as kf
@@ -636,23 +638,23 @@ def main() -> int:
     out_dir = os.path.join(ROOT, "build", "kernel_variants")
     os.makedirs(out_dir, exist_ok=True)
     if args.only == "onepass":
-        return onepass_variants(torch, cs, out_dir)
+        return onepass_variants(torch, ct, tc, out_dir)
     if args.only == "jointhist":
-        return jointhist_variants(torch, cs, out_dir)
+        return jointhist_variants(torch, ct, tc, out_dir)
     t0 = time.perf_counter()
     _build.build(("hist", "fused"))
     todo = [k for k in ("hist", "fused") if args.only in (None, k)]
     table = {"hist": HIST_VARIANTS, "fused": FUSED_VARIANTS}
     paths = {k: build_variants(k, table[k], out_dir) for k in todo}
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    timer = cs.Timer(torch)
+    timer = ct.Timer()
     kinds = tuple(IndexKind.parse(k) for k in KINDS)
     round0 = (True, True, False)
-    inputs = {"uniform": cs.uniform_frames(torch, SHAPE),
-              "smooth": torch.as_tensor(cs.smooth_field(SHAPE), device="cuda")}
+    inputs = {"uniform": tc.uniform_frames(SHAPE),
+              "smooth": torch.as_tensor(tc.smooth_field(SHAPE), device="cuda")}
     bounds = {}
     for label, img in inputs.items():
-        lo, hi, *_ = cs.check_hist_fused(torch, f"shipped {label}", img, kinds, round0)
+        lo, hi, *_ = tc.check_hist_fused(f"shipped {label}", img, kinds, round0)
         bounds[label] = (lo, hi)
 
     # What the card's memory gives plain PyTorch kernels on as many bytes as
@@ -686,7 +688,7 @@ def main() -> int:
                 for label, img in inputs.items():
                     _build._LIBS[kernel] = lib
                     if not diagnostic:
-                        cs.check_hist_fused(torch, f"{name} {label}", img, kinds, round0)
+                        tc.check_hist_fused(f"{name} {label}", img, kinds, round0)
                     fn = run(kernel, img, label)
                     _build._LIBS[kernel] = shipped
                     before = timer.kernel(fn)
@@ -705,7 +707,7 @@ def main() -> int:
     if args.sass:
         sass_report(out_dir)
     if args.only is None:
-        return onepass_variants(torch, cs, out_dir)
+        return onepass_variants(torch, ct, tc, out_dir)
     return 0
 
 

@@ -1,60 +1,45 @@
 #!/usr/bin/env python3
-"""Where the time of rgnir_torch's analysis path goes, on one CUDA card.
+"""Where the time of rgnir_torch's paths that have no benchmark cell goes, on one CUDA card.
 
-    python3 tools/profile_torch_path.py [--frames 8] [--size 1024] [--calls 5]
-                                        [--mosaic 8192] [--only-mosaic] [--onepass]
-                                        [--stream] [--batch] [--change]
+    python3 tools/profile_torch_path.py [--mosaic 8192] [--onepass] [--batch] [--change]
+                                        [--frames 8] [--size 1024] [--calls 5]
                                         [--package-root DIR]
 
-For each configuration of chip_smoke.py's path phase (NDVI, GNDVI and
-NDWI with renders and the 50-bin histogram; NDVI alone without the
-histogram; the three kinds again with the one-pass select,
-``analyze_image_kernel(select_onepass=True)``) it prints:
+Each path is profiled over ``--calls`` calls after three warm ones; it
+prints the wall time per call (host clock around calls that end in
+``torch.cuda.synchronize()``) and MPix/s, the device time per call by
+kernel name from ``torch.profiler`` (``self_device_time_total`` of the
+device-side events over the window, divided by the calls; the host-side
+operator rows, which repeat their kernels' time, are left out), and the
+device's busy and idle share of the window: the union of the device
+records' intervals (kernels, copies, memsets) over the wall time, so
+that a copy that overlaps a kernel counts once (``busy_seconds``). The
+profiler slows the host, so the idle share of the profiled window
+overstates an unprofiled call's. A Chrome trace of each window goes to
+``build/torch_path_traces/``. The paths that a benchmark cell runs are
+traced by ``portbench/run.py --workload <cell> --trace 1``.
 
-- the wall time per call (host clock around calls that end in
-  ``torch.cuda.synchronize()``) and MPix/s;
-- the device time per call by kernel name, from ``torch.profiler``
-  (``self_device_time_total`` of the device-side events over the window,
-  divided by the calls; the host-side operator rows, which repeat their
-  kernels' time, are left out);
-- the device's busy and idle share of the window: the union of the
-  device records' intervals (kernels, copies, memsets) over the wall
-  time, so that a copy that overlaps a kernel counts once
-  (``busy_seconds``). The profiler slows the host, so the idle share of
-  the profiled window overstates an unprofiled call's.
-
-``--mosaic SIDE`` profiles the same way the sharded mosaic's kernel body
+``--mosaic SIDE`` profiles the sharded mosaic's kernel body
 (``parallel.analyze_mosaic(impl="kernel")``, the three kinds with
 renders) on a ``SIDE x SIDE`` mosaic over a 1-D mesh of one and of four
-shards of the card; ``--only-mosaic`` skips the frame configurations.
-A Chrome trace of each window goes to ``build/torch_path_traces/``.
-``--onepass`` also times the one-pass select kernel on chip_smoke.py's
-three inputs at the (a1) path's rows (``time_onepass``).
-``--stream`` profiles the streaming session instead of the frame
-configurations: a ``StreamAnalyzer`` of chip_smoke.py's phase 4d (batch
-8 of 1080 x 1920 frames, three kinds, statistics only) takes 8 frames by
-``submit`` (into its pinned staging slot) and ``drain``s them: one
-dispatch per call, with its copy to the device ("Memcpy HtoD") among the
-device rows. Then it runs chip_smoke.py's four-ring session (four
-spawned producers, 24 frames each, unpaced) twice, the second time under
-``cProfile`` on the consumer: frames/s of each run, and the consumer's
-host functions by own time (``FrameRing.try_pop`` is the copy out of
-shared memory into the pinned slot).
-``--batch`` profiles the batch directory pipeline instead of the frame
-configurations, on chip_smoke.py's phase 4e directory (32 TIFF frames of
-1536 x 2048, 8 JPEG frames of 1080 x 1920, one PNG, two bad files;
-three kinds with renders, no WB frames: run C): ``--calls`` profiled
-dispatches of the 32-frame batch as ``batch_process`` makes them (the
-copy in from a pinned buffer, ``analyze_image_auto``, the renders'
-copies back into pinned buffers; "Memcpy HtoD" and "Memcpy DtoH" among
-the device rows); then the whole run three times: unprofiled (wall,
-frames/s, the host's stage times), under ``torch.profiler`` (the
-device's busy share of the run's wall), and under ``cProfile`` with the
-decode and encode calls of the pool threads timed each (their wall and
-thread CPU seconds; Python 3.12's cProfile sees every thread, so its
-own times mix the threads').
-``--change`` profiles chip_smoke.py's phase 4f instead of the frame
-configurations: change detection of two 1536 x 2048 frames (integer,
+shards of the card.
+``--onepass`` times the one-pass select kernel, as ``chip_smoke.py``'s
+kernel table does (``tools/card_timing.py``'s ``Timer``), on the one-pass
+inputs (``tests/torch_card.py``) at the (a1) path's rows for ``--frames`` frames of ``--size``^2.
+``--batch`` profiles the batch directory pipeline on the card tests'
+directory (``write_batch_inputs``) at 32 TIFF frames of 1536 x 2048, 8
+JPEG frames of 1080 x 1920, one PNG and two bad files; three kinds with
+renders, no WB frames: ``--calls`` profiled dispatches of the 32-frame
+batch as ``batch_process`` makes them (the copy in from a pinned buffer,
+``analyze_image_auto``, the renders' copies back into pinned buffers;
+"Memcpy HtoD" and "Memcpy DtoH" among the device rows); then the whole
+run three times: unprofiled (wall, frames/s, the host's stage times),
+under ``torch.profiler`` (the device's busy share of the run's wall), and
+under ``cProfile`` with the decode and encode calls of the pool threads
+timed each (their wall and thread CPU seconds; Python 3.12's cProfile
+sees every thread, so its own times mix the threads').
+``--change`` profiles the flows of the card tests at the survey size
+(``flow_inputs``): change detection of two 1536 x 2048 frames (integer,
 ``upsample_factor=10`` and ``refine_tile=256``, downscaled to 768 x
 1024 on the device), ``change_series_maps`` over 8 downscaled dates,
 the time series' device part (``timeseries.date_stats``) over the 8
@@ -63,27 +48,49 @@ three kinds; for each, beside the rows by kernel name, the device time
 by class (FFT, GEMM for the resize and the upsampled DFT, the kernel
 path, copies, small ops).
 ``--package-root DIR`` profiles the ``rgnir_torch`` package of another
-tree (a parent's ``git archive``) with this tree's tool and
-``chip_smoke.py`` helpers, so that a parent and a change run in turns
-measure the same things. Inputs are made from
-``numpy.random.default_rng(0)``. Needs a CUDA device.
+tree (a parent's ``git archive``) with this tree's tool and inputs, so
+that a parent and a change run in turns measure the same things. Needs
+a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-CONFIGS = (  # label, kinds, with_hist, select_onepass
-    ("three kinds, renders, histogram", ("NDVI", "GNDVI", "NDWI"), True, None),
-    ("headline: NDVI, renders, no histogram", ("NDVI",), False, None),
-    ("three kinds, renders, histogram, one-pass select", ("NDVI", "GNDVI", "NDWI"), True, True),
-)
+PATH_KERNEL = re.compile(r"\b(hist|fused|byte_hist|q24_tail|q24_onepass)_kernel\b")
+
+
+def kernel_class(name):
+    """The class of a device row of the profiler, for the flows' shares."""
+    low = name.lower()
+    if "fft" in low:
+        return "fft"
+    if PATH_KERNEL.search(name):
+        return "kernel path"
+    if "gemm" in low or "cutlass" in low or "xmma" in low:
+        return "gemm"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    return "small ops"
+
+
+def codec_line():
+    """Which decoder and encoder the batch path uses on this machine."""
+    from rgnir_torch.native import imgio
+
+    if imgio.native_available():
+        return "decode and encode: imgio (libtiff, libjpeg, libpng; PNG at zlib level 1, filter NONE)"
+    err = imgio.build_error().splitlines()
+    first_error = next((ln.strip() for ln in err if "error" in ln), "")
+    return (f"decode and encode: Pillow, at Pillow's default PNG level (imgio did not build: "
+            f"{err[0].strip()} {first_error})")
 
 
 def busy_seconds(events) -> float:
@@ -99,86 +106,22 @@ def busy_seconds(events) -> float:
     return sum(b - a for a, b in union(spans)) / 1e6
 
 
-def time_onepass(torch, cs, shape):
-    """Device time of q24_onepass, as chip_smoke.py's Timer gives it, on
-    chip_smoke.py's three inputs at the (a1) path's rows for frames of
-    ``shape``: the two canonical kinds' index maps of uniform frames and
-    of the smooth field, and constant rows."""
+def time_onepass(timer, tc, shape):
+    """Device time of q24_onepass, by ``timer`` (``card_timing.Timer``), on
+    the one-pass inputs at the (a1) path's rows for frames of ``shape``:
+    the two canonical kinds' index maps of uniform frames and of the
+    smooth field, and constant rows."""
     from rgnir_torch.kernels import select as ks
 
-    timer = cs.Timer(torch)
-    for label, rows in cs.onepass_inputs(torch, shape).items():
-        _, sel0, rank1, means = cs.onepass_setup(torch, rows)
+    for label, rows in tc.onepass_inputs(shape).items():
+        _, sel0, rank1, means = tc.onepass_setup(rows)
         ms = timer.kernel(lambda: ks.q24_onepass(rows, sel0, rank1, means))
         print(f"  q24_onepass {label} {tuple(rows.shape)}: {ms:.4f} ms", flush=True)
 
 
-def profile_stream_session(torch, cs, smi):
-    """chip_smoke.py's four-ring session, unprofiled and then under
-    cProfile on the consumer: frames/s, and the consumer's host time by
-    function."""
-    import cProfile
-    import pstats
-
-    from rgnir_torch.native import FrameRing
-    from rgnir_torch.pipeline.streaming import StreamAnalyzer
-
-    capacity, _ = cs.ring_capacity(cs.STREAM_RINGS)
-    analyzer = StreamAnalyzer(frame_shape=cs.STREAM_SHAPE, kinds=cs.KINDS, batch=cs.STREAM_BATCH)
-    analyzer.warmup()
-    shape = cs.STREAM_SHAPE + (3,)
-    # the consumer's one host copy, alone: numpy into a pinned row, and a
-    # pop from a ring filled in this process (no producer running)
-    frame, row = cs.stream_frame(0, 0), analyzer._slot_np[0][0]
-    t0 = time.perf_counter()
-    for _ in range(20):
-        np.copyto(row, frame)
-    copy_s = (time.perf_counter() - t0) / 20
-    with FrameRing.create(f"/rgnir_profile_{os.getpid()}_alone", shape, 4) as ring:
-        pop_s = 0.0
-        for _ in range(5):
-            for _ in range(4):
-                ring.try_push(frame)
-            t0 = time.perf_counter()
-            for _ in range(4):
-                ring.try_pop(out=row)
-            pop_s += time.perf_counter() - t0
-        pop_s /= 20
-    print(f"\none {shape[0]}x{shape[1]} frame ({frame.nbytes} bytes) into a pinned slot row, "
-          f"no producer "
-          f"running: numpy copy {copy_s * 1e3:.3f} ms ({frame.nbytes / copy_s / 1e9:.2f} GB/s), "
-          f"FrameRing.try_pop {pop_s * 1e3:.3f} ms ({frame.nbytes / pop_s / 1e9:.2f} GB/s) [{smi}]",
-          flush=True)
-    for run, profiled in enumerate((False, True)):
-        names = [f"/rgnir_profile_{os.getpid()}_{run}_{si}" for si in range(cs.STREAM_RINGS)]
-        rings = [FrameRing.create(name, shape, capacity) for name in names]
-        prof = cProfile.Profile() if profiled else None
-        try:
-            with cs.Producers(names, cs.STREAM_FRAMES, 0) as producers:
-                t0 = time.perf_counter()
-                producers.go.set()
-                if prof:
-                    prof.enable()
-                got = list(analyzer.run_from_rings(rings))
-                torch.cuda.synchronize()
-                if prof:
-                    prof.disable()
-                seconds = time.perf_counter() - t0
-                producers.push_times()
-        finally:
-            for r in rings:
-                r.close()
-        fps = len(got) / seconds
-        print(f"\nstream session, {cs.STREAM_RINGS} rings x {cs.STREAM_FRAMES} frames, capacity "
-              f"{capacity}{', consumer under cProfile' if profiled else ''}: {seconds * 1e3:.2f} ms, "
-              f"{fps:.2f} frames/s, {fps * shape[0] * shape[1] / 1e6:.1f} MPix/s [{smi}]",
-              flush=True)
-    pstats.Stats(prof, stream=sys.stdout).sort_stats("tottime").print_stats(15)
-
-
-def profile_batch(torch, cs, smi, calls, trace_path):
-    """chip_smoke.py's phase 4e directory through the batch pipeline
-    (run C): its dispatch under ``profile_call``, then the whole run
+def profile_batch(torch, tc, smi, calls, trace_path):
+    """The card tests' batch directory through the batch pipeline, without
+    WB frames: its dispatch under ``profile_call``, then the whole run
     unprofiled, under ``torch.profiler`` and under ``cProfile``."""
     import cProfile
     import pstats
@@ -199,17 +142,17 @@ def profile_batch(torch, cs, smi, calls, trace_path):
     src = root / "in"
     src.mkdir(parents=True)
     try:
-        inputs = cs.write_batch_inputs(src, tiffs=32)  # one batch at the default batch size
-        print(f"\nbatch directory: {len(inputs)} good inputs and 2 bad; {cs.codec_line()} "
+        inputs = tc.write_batch_inputs(src, tiffs=32)  # one batch at the default batch size
+        print(f"\nbatch directory: {len(inputs)} good inputs and 2 bad; {codec_line()} "
               f"[{smi}]", flush=True)
-        tiffs = [p for p, shape in inputs.items() if shape == cs.BATCH_TIFF_SHAPE]
+        tiffs = [p for p, shape in inputs.items() if shape == tc.BATCH_TIFF_SHAPE]
         bufs = HostBuffers(pinned=True)
-        images = bufs.take_array((len(tiffs),) + cs.BATCH_TIFF_SHAPE + (3,))
+        images = bufs.take_array((len(tiffs),) + tc.BATCH_TIFF_SHAPE + (3,))
         np.stack([decode_file(p) for p in tiffs], out=images)
 
         def dispatch():
             x = torch.from_numpy(images).to("cuda", non_blocking=True)
-            res = analyze_image_auto(x, kinds=cs.KINDS)
+            res = analyze_image_auto(x, kinds=tc.KINDS)
             outs = []
             for v in res.renders.values():
                 outs.append(bufs.take(v.shape, v.dtype))
@@ -218,7 +161,7 @@ def profile_batch(torch, cs, smi, calls, trace_path):
             for o in outs:
                 bufs.give(o)
 
-        h, w = cs.BATCH_TIFF_SHAPE
+        h, w = tc.BATCH_TIFF_SHAPE
         profile_call(torch, f"batch: one dispatch of {len(tiffs)} x {h}x{w} frames (copy in, "
                      f"analysis, the three renders copied back), three kinds", dispatch,
                      len(tiffs) * h * w / 1e6, calls, trace_path)
@@ -230,7 +173,7 @@ def profile_batch(torch, cs, smi, calls, trace_path):
         frames = len(inputs)
 
         def run(n):
-            return batch_process(src, root / f"out_{n}", indices=cs.KINDS)
+            return batch_process(src, root / f"out_{n}", indices=tc.KINDS)
 
         pinned_before = torch.cuda.host_memory_stats()["allocated_bytes.current"]
         s = run(0)
@@ -340,19 +283,19 @@ def profile_call(torch, label, call, mpix, calls, trace_path):
     return rows, busy_ms
 
 
-def profile_flows(torch, cs, calls, out_dir):
-    """chip_smoke.py's phase 4f flows, each through ``profile_call``, with
-    its device time by class (``chip_smoke.kernel_class``)."""
+def profile_flows(torch, tc, calls, out_dir):
+    """The card tests' flows at the survey size, each through
+    ``profile_call``, with its device time by class (``kernel_class``)."""
     from rgnir_torch.config import MAX_ANALYSIS_DIM
     from rgnir_torch.pipeline.change import change_detection, change_series_maps
     from rgnir_torch.pipeline.compare import comparison_analysis
     from rgnir_torch.pipeline.timeseries import date_stats
 
-    early, late, series = cs.flow_inputs()
-    stack = torch.stack(cs.downscaled(torch, series, "cuda", MAX_ANALYSIS_DIM))
-    images = [(f"survey_{i}.tif", cs.survey_frame(i, shape))
-              for i, shape in enumerate(cs.COMPARE_SHAPES)]
-    h, w = cs.FLOW_SHAPE
+    early, late, series = tc.flow_inputs()
+    stack = torch.stack(tc.downscaled(series, "cuda", MAX_ANALYSIS_DIM))
+    images = [(f"survey_{i}.tif", tc.survey_frame(i, shape))
+              for i, shape in enumerate(tc.COMPARE_SHAPES)]
+    h, w = tc.FLOW_SHAPE
     pair_mpix = 2 * h * w / 1e6
     flows = [  # label, call, MPix of its input
         (f"change detection {h}x{w}, integer",
@@ -360,15 +303,15 @@ def profile_flows(torch, cs, calls, out_dir):
         (f"change detection {h}x{w}, upsample_factor 10",
          lambda: change_detection(early, late, "NDVI", with_figure=False, upsample_factor=10),
          pair_mpix),
-        (f"change detection {h}x{w}, refine_tile {cs.FLOW_TILE}",
+        (f"change detection {h}x{w}, refine_tile {tc.FLOW_TILE}",
          lambda: change_detection(early, late, "NDVI", with_figure=False,
-                                  refine_tile=cs.FLOW_TILE), pair_mpix),
+                                  refine_tile=tc.FLOW_TILE), pair_mpix),
         (f"change_series_maps {tuple(stack.shape)}",
          lambda: change_series_maps(stack, "NDVI"), stack[..., 0].numel() / 1e6),
         (f"time series device part, {len(series)} dates of {h}x{w}",
          lambda: date_stats(series, "NDVI"), len(series) * h * w / 1e6),
         (f"comparison, {len(images)} images, three kinds",
-         lambda: comparison_analysis(images, kinds=cs.KINDS, with_figures=False),
+         lambda: comparison_analysis(images, kinds=tc.KINDS, with_figures=False),
          sum(a.shape[0] * a.shape[1] for _, a in images) / 1e6),
     ]
     for n, (label, call, mpix) in enumerate(flows):
@@ -376,7 +319,7 @@ def profile_flows(torch, cs, calls, out_dir):
                                   os.path.join(out_dir, f"torch_flow_trace_{n}.json"))
         by = {}
         for ms, _, name in rows:
-            by[cs.kernel_class(name)] = by.get(cs.kernel_class(name), 0.0) + ms
+            by[kernel_class(name)] = by.get(kernel_class(name), 0.0) + ms
         if busy:
             print(f"  by class, of {busy:.4f} ms busy: " + ", ".join(
                 f"{k} {v:.4f} ms ({v / busy:.1%})" for k, v in
@@ -385,23 +328,22 @@ def profile_flows(torch, cs, calls, out_dir):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--frames", type=int, default=8, help="frames per call")
-    ap.add_argument("--size", type=int, default=1024)
+    ap.add_argument("--frames", type=int, default=8, help="frames of --onepass's rows")
+    ap.add_argument("--size", type=int, default=1024, help="side of --onepass's frames")
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--onepass", action="store_true",
-                    help="also time the one-pass select kernel on three inputs")
+                    help="time the one-pass select kernel on three inputs")
     ap.add_argument("--mosaic", type=int, default=0,
-                    help="also profile the sharded mosaic's kernel body at this side")
-    ap.add_argument("--only-mosaic", action="store_true")
-    ap.add_argument("--stream", action="store_true",
-                    help="profile batch-8 1080p streaming dispatches instead of the frames")
+                    help="profile the sharded mosaic's kernel body at this side")
     ap.add_argument("--batch", action="store_true",
-                    help="profile the batch directory pipeline instead of the frames")
+                    help="profile the batch directory pipeline")
     ap.add_argument("--change", action="store_true",
-                    help="profile phase 4f's change, time-series and comparison flows instead")
+                    help="profile the change, time-series and comparison flows")
     ap.add_argument("--package-root", default=None,
                     help="profile the rgnir_torch package of this tree instead")
     args = ap.parse_args()
+    if not (args.onepass or args.mosaic or args.batch or args.change):
+        ap.error("name a path: --mosaic SIDE, --onepass, --batch or --change")
 
     import torch
 
@@ -409,65 +351,29 @@ def main() -> int:
         print("profile_torch_path: no CUDA device", file=sys.stderr)
         return 2
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, root)
-    import chip_smoke as cs  # this tree's, before another tree comes first on the path
+    # this tree's tool and inputs, before another tree comes first on the path
+    sys.path[:0] = [root, os.path.join(root, "tests")]
+    import torch_card as tc
+    from card_timing import Timer
 
     if args.package_root:
         sys.path.insert(0, os.path.abspath(args.package_root))
     from rgnir_torch.kernels._build import build
-    from rgnir_torch.kernels.pipeline import analyze_image_kernel
-    from rgnir_torch.pipeline.dispatch import analyze_image_auto
 
     build()
-    shape = (args.frames, args.size, args.size, 3)
-    img = torch.as_tensor(
-        np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8),
-        device="cuda")
-    mpix = args.frames * args.size * args.size / 1e6
     out_dir = os.path.join(root, "build", "torch_path_traces")
     os.makedirs(out_dir, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     import rgnir_torch
 
-    print(f"device: {torch.cuda.get_device_name(0)} [{smi}]; frames {shape}; package "
+    print(f"device: {torch.cuda.get_device_name(0)} [{smi}]; package "
           f"{os.path.dirname(rgnir_torch.__file__)}", flush=True)
 
-    if args.stream:
-        from rgnir_torch.pipeline.streaming import StreamAnalyzer
-
-        analyzer = StreamAnalyzer(frame_shape=cs.STREAM_SHAPE, kinds=cs.KINDS,
-                                  batch=cs.STREAM_BATCH)
-        analyzer.warmup()
-        frames = [cs.stream_frame(0, seq) for seq in range(cs.STREAM_BATCH)]
-
-        def dispatch():
-            for f in frames:
-                analyzer.submit(f)
-            return list(analyzer.drain())
-
-        h, w = cs.STREAM_SHAPE
-        profile_call(torch, f"stream: one batch-{cs.STREAM_BATCH} dispatch of {h}x{w} frames "
-                     f"(submit, drain), three kinds, statistics only", dispatch,
-                     cs.STREAM_BATCH * h * w / 1e6, args.calls,
-                     os.path.join(out_dir, "torch_stream_trace.json"))
-        profile_stream_session(torch, cs, smi)
     if args.batch:
-        profile_batch(torch, cs, smi, args.calls, os.path.join(out_dir, "torch_batch_trace.json"))
+        profile_batch(torch, tc, smi, args.calls, os.path.join(out_dir, "torch_batch_trace.json"))
     if args.change:
-        profile_flows(torch, cs, args.calls, out_dir)
-    for n, (label, kinds, with_hist, onepass) in enumerate(CONFIGS):
-        if args.only_mosaic or args.stream or args.batch or args.change:
-            break
-
-        def call():
-            if onepass:
-                return analyze_image_kernel(img, kinds=kinds, with_hist=with_hist,
-                                            select_onepass=True)
-            return analyze_image_auto(img, kinds=kinds, with_hist=with_hist)
-
-        profile_call(torch, label, call, mpix, args.calls,
-                     os.path.join(out_dir, f"torch_path_trace_{n}.json"))
+        profile_flows(torch, tc, args.calls, out_dir)
     if args.mosaic:
         from rgnir_torch.parallel import analyze_mosaic, make_mesh
 
@@ -484,7 +390,7 @@ def main() -> int:
                 os.path.join(out_dir, f"torch_mosaic_trace_{shards}.json"))
     if args.onepass:
         print(f"\none-pass select kernel [{smi}]:", flush=True)
-        time_onepass(torch, cs, (args.frames, args.size, args.size))
+        time_onepass(Timer(), tc, (args.frames, args.size, args.size))
     return 0
 
 
