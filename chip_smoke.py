@@ -492,7 +492,7 @@ def path_checks():
     mosaic = tc.mosaic_paths()
     log(f"mosaic {tc.MOSAIC_SHAPE} on four shards: matches the plain body and the one-frame path")
     tc.stream_checks()
-    log("stream: four spawned producers, a paced one and a partial dispatch match the plain path")
+    log("stream: four spawned producers, a paced one and three ring frames through the free-card rule match the plain path")
     with tempfile.TemporaryDirectory() as root:
         tc.batch_checks(Path(root))
     log("batch directory: runs A, B and C match the plain path")

@@ -3,13 +3,16 @@ producers, batched into the kernel path (BASELINE config 4: 1080p
 frames, three indices and per-frame statistics).
 
 ``StreamAnalyzer`` copies each frame into a pinned staging slot of
-``(batch, H, W, 3)`` bytes, and a full slot goes to the device with one
-asynchronous copy and one call of
-:func:`rgnir_torch.pipeline.dispatch.analyze_image_auto`. ``submit``
-returns at once, so the host stages the next frames while the device
-works; it returns results ``depth`` batches behind, and ``pop_ready``
-hands each batch's results out as soon as the device has finished that
-batch (a CUDA event recorded after its pass, asked without waiting).
+``(batch, H, W, 3)`` bytes, and the slot's staged frames go to the device
+with one asynchronous copy and one call of
+:func:`rgnir_torch.pipeline.dispatch.analyze_image_auto` when the slot is
+full or, on CUDA, when nothing of the analyzer is unfinished on the card
+and the caller has waited long enough to spend a dispatch, whichever
+comes first. ``submit`` returns at once, so the host stages the next
+frames while the device works; it returns results ``depth`` batches
+behind, and ``pop_ready`` hands each batch's results out as soon as the
+device has finished that batch (a CUDA event recorded after its pass,
+asked without waiting).
 Each result holds per-frame views of the batch's statistics on the
 device, read when the caller reads them. ``run_from_rings`` and
 ``run_from_ring`` pop frames from shared-memory rings
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from rgnir_torch.config import ALL_INDICES, IndexKind
+from rgnir_torch.kernels.graph import MAX_MEMBERS
 from rgnir_torch.ops.stats import IndexStats
 from rgnir_torch.pipeline.dispatch import analyze_image_auto
 from rgnir_torch.pipeline.fused import resolve_device
@@ -54,8 +58,26 @@ class StreamAnalyzer:
 
     ``batch`` > 1 groups frames (of one high-rate stream or of several
     multiplexed ones) into one dispatch; results keep per-frame
-    granularity, one ``FrameResult`` per frame. A frame waits for its
-    batch to fill, so keep ``batch`` <= streams x fps x latency budget.
+    granularity, one ``FrameResult`` per frame. ``batch`` is an upper
+    bound: on CUDA the staged frames, however few, go as soon as the card
+    and the host are both free, while fewer than
+    ``kernels.graph.MAX_MEMBERS`` results wait in the queue. The card is
+    free when none of this analyzer's batches is unfinished on it (the
+    newest dispatch's finish event, asked with ``Event.query()``, which
+    never waits). The host is free when, since the newest dispatch ended,
+    it has spent outside this analyzer (the caller's time between calls
+    of ``submit``, and the ring loops' idle sleeps) at least the time a
+    dispatch takes (the least any of this analyzer's has taken): a
+    dispatch costs the host about the same whatever its size, and this
+    spends it only where the caller does not need the host itself, so a
+    caller behind its frames, which comes straight back, gets batches.
+    Before any dispatch both count as free. So with the card and the host
+    idle a frame goes alone at once; while the last batch runs on the
+    card, or while the caller is behind its frames, frames fill the slot,
+    up to ``batch``. Each batch is analysed at its own size. On the CPU
+    the step is synchronous and the rule does not engage: a batch goes
+    when full, or from ``flush_partial`` or ``drain``, as in the JAX
+    package.
 
     Hand-out: results leave in frame order. ``submit`` returns the
     oldest result once more than ``depth`` batches are in flight (the
@@ -67,18 +89,20 @@ class StreamAnalyzer:
     finished.
 
     Staging: ``depth + 1`` slots of ``(batch, H, W, 3)`` uint8, pinned
-    when the device is CUDA, allocated once. A full slot goes to the
-    device with ``non_blocking=True`` and records a CUDA event; filling
-    the slot again first waits for that event, so a copy in flight never
-    reads bytes of a later batch. On the CPU a slot is analysed in place,
-    synchronously.
+    when the device is CUDA, allocated once. A slot's staged frames go to
+    the device with ``non_blocking=True`` and record a CUDA event;
+    filling the slot again first waits for that event, so a copy in
+    flight never reads bytes of a later batch. On the CPU a slot is
+    analysed in place, synchronously.
 
     ``device`` is CUDA unless the caller names another; without CUDA the
     default raises.
 
     Inside ``rgnir_torch.utils.profiling.recording()`` it records the
     spans ``stream.submit`` (with ``stream.slot_wait``, ``stream.copy``
-    and ``stream.dispatch``), counts ``stream.partial_dispatches``, and
+    and ``stream.dispatch``), counts ``stream.partial_dispatches``
+    (``flush_partial``'s) and ``stream.idle_dispatches`` (the partial
+    batches sent because the card and the host were free), and
     records per frame, with its ``frame_id``, the intervals ``stream.fill``
     (from the frame's staging to its batch's dispatch) and
     ``stream.held`` (from that dispatch to the result handed out by
@@ -119,6 +143,13 @@ class StreamAnalyzer:
         # each dispatched frame's result beside its batch's finish marker
         self._inflight: Deque[Tuple[FrameResult, Optional[torch.cuda.Event]]] = \
             collections.deque()
+        self._last_finish: Optional[torch.cuda.Event] = None  # the newest dispatch's marker
+        # the least seconds a dispatch has taken (None: none yet), the host's
+        # seconds outside this analyzer since the newest dispatch ended, and
+        # when submit last returned
+        self._dispatch_s: Optional[float] = None
+        self._away_s = 0.0
+        self._returned_at: Optional[float] = None
         self._next_id = 0
         # while recording: each staged row's perf_counter_ns (0: none), and
         # each dispatched frame's dispatch time until its result is handed out
@@ -131,15 +162,24 @@ class StreamAnalyzer:
         return res.stats, res.renders
 
     def warmup(self) -> None:
-        """Build the kernels (on CUDA) and analyse one batch of zeros, so
-        that the first real frame does not pay for either; on CUDA twice,
-        the second capturing the graph that every full batch replays."""
+        """Build the kernels (on CUDA) and analyse batches of zeros, so
+        that no real frame pays for either: on the CPU one full batch; on
+        CUDA every size from 1 to ``batch`` (a batch sent because the card
+        was free may have any), three times each: the eager call, the
+        capture of the graph that size replays, and a call while the last
+        one's result is still held, as the stream holds a batch's results
+        while the next batch goes (so a size whose results keep its graph
+        busy captures its second graph here, not while frames wait)."""
         zeros = torch.zeros((self.batch,) + self.frame_shape + (3,), dtype=torch.uint8,
                             device=self.device)
-        for _ in range(2 if self.device.type == "cuda" else 1):
+        if self.device.type != "cuda":
             self._step(zeros)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            return
+        for n in range(1, self.batch + 1):
+            for _ in range(3):
+                held = self._step(zeros[:n])
+            del held
+        torch.cuda.synchronize(self.device)
 
     def _stage_row(self) -> np.ndarray:
         """The row of the current slot that the next frame fills. The
@@ -154,6 +194,7 @@ class StreamAnalyzer:
         """Analyse the staged frames (those of a partial batch too) and
         queue one result per frame."""
         n = self._n_staged
+        t0 = time.perf_counter()
         t_dispatch = time.perf_counter_ns() if profiling.is_recording() else 0
         block = self._slots[self._slot][:n]
         with profiling.span("stream.dispatch"):
@@ -164,6 +205,7 @@ class StreamAnalyzer:
                 self._copied[self._slot] = event
             stats, renders = self._step(block)
             finished = self._finish_marker()
+        self._last_finish = finished
         self.dispatches += 1
         self._slot = (self._slot + 1) % len(self._slots)
         self._n_staged = 0
@@ -179,6 +221,9 @@ class StreamAnalyzer:
                 {k: v[j] for k, v in renders.items()} if self.with_renders else None,
             ), finished))
             self._next_id += 1
+        took = time.perf_counter() - t0
+        self._dispatch_s = took if self._dispatch_s is None else min(self._dispatch_s, took)
+        self._away_s = 0.0
 
     def _finish_marker(self) -> Optional[torch.cuda.Event]:
         """What says that the batch just enqueued has finished: a CUDA
@@ -189,6 +234,31 @@ class StreamAnalyzer:
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
         return event
+
+    def _card_free(self) -> bool:
+        """Whether none of this analyzer's batches is unfinished on the
+        card: before any dispatch, or once the newest dispatch's finish
+        event has completed (asked without waiting). False off CUDA, where
+        the step is synchronous, so that the CPU keeps the JAX package's
+        grouping."""
+        if self.device.type != "cuda":
+            return False
+        return self._last_finish is None or self._last_finish.query()
+
+    def _host_free(self) -> bool:
+        """Whether the host can spend a dispatch without falling behind the
+        caller: before any dispatch, or once it has spent outside this
+        analyzer, since the newest dispatch ended, at least the least time
+        a dispatch has taken (one slowed by a collection or a capture sets
+        no higher bar)."""
+        return self._dispatch_s is None or self._away_s >= self._dispatch_s
+
+    def _idle(self, seconds: float) -> None:
+        """A ring loop's sleep while no ring has a frame: time the host
+        spends outside the analyzer's work."""
+        t = time.perf_counter()
+        time.sleep(seconds)
+        self._away_s += time.perf_counter() - t
 
     def _hand_out(self) -> FrameResult:
         """The oldest result, leaving the queue; its ``stream.held`` ends here."""
@@ -201,10 +271,18 @@ class StreamAnalyzer:
         return r
 
     def _commit(self) -> None:
-        """Count the frame just staged; dispatch a full slot."""
+        """Count the frame just staged; dispatch a full slot, or the
+        staged frames however few when the card and the host are free and
+        fewer than ``MAX_MEMBERS`` results wait in the queue. (A queued
+        result may hold its graph, renders being handed out in place, and
+        a key has at most ``MAX_MEMBERS`` graphs; past that a caller that
+        leaves results queued gets full batches, as before the rule.)"""
         self._staged_ns[self._n_staged] = time.perf_counter_ns() if profiling.is_recording() else 0
         self._n_staged += 1
         if self._n_staged == self.batch:
+            self._dispatch_staged()
+        elif len(self._inflight) < MAX_MEMBERS and self._card_free() and self._host_free():
+            profiling.count("stream.idle_dispatches")
             self._dispatch_staged()
 
     def submit(self, frame: np.ndarray) -> Optional[FrameResult]:
@@ -214,14 +292,16 @@ class StreamAnalyzer:
             raise ValueError(f"frame shape {frame.shape} != {self.frame_shape + (3,)}")
         if frame.dtype != np.uint8:
             raise TypeError(f"frame dtype {frame.dtype} != uint8")
+        if self._returned_at is not None:
+            self._away_s += time.perf_counter() - self._returned_at
         with profiling.span("stream.submit"):
             row = self._stage_row()
             with profiling.span("stream.copy"):
                 row[...] = frame
             self._commit()
-            if len(self._inflight) > self.depth * self.batch:
-                return self._hand_out()
-            return None
+            out = self._hand_out() if len(self._inflight) > self.depth * self.batch else None
+        self._returned_at = time.perf_counter()
+        return out
 
     def flush_partial(self) -> None:
         """Dispatch a partially filled batch now (the latency policy's
@@ -325,7 +405,7 @@ class StreamAnalyzer:
                     self.flush_partial()
                     staged_since = None
                 elif not all(done):
-                    time.sleep(idle_sleep_s)
+                    self._idle(idle_sleep_s)
                 for r in self.pop_ready():
                     yield route(r)
         for r in self.drain():
@@ -347,7 +427,7 @@ class StreamAnalyzer:
                 if max_frames is None and ring.eof:
                     eof_seen = True  # frames pushed before finish() come first
                     continue
-                time.sleep(idle_sleep_s)
+                self._idle(idle_sleep_s)
                 yield from self.pop_ready()
                 continue
             eof_seen = False

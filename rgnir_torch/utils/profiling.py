@@ -29,7 +29,11 @@ beside a key's others, an eager call because none was free);
 ``stream.dispatch`` (``StreamAnalyzer``), and per frame the intervals
 ``stream.fill`` (staged to its batch's dispatch) and ``stream.held``
 (dispatch to the result handed out), each with ``frame_id``; the
-counter ``stream.partial_dispatches``; ``batch.<stage>``
+counters ``stream.partial_dispatches`` (partial batches ``flush_partial``
+sent), ``stream.idle_dispatches`` (partial batches sent because none of
+the analyzer's batches was unfinished on the card and the caller had
+waited long enough to spend a dispatch) and
+``stream.ready_handouts``; ``batch.<stage>``
 (``StageTimer``); ``gc`` (attributes ``generation``, ``collected``);
 ``mosaic.pass`` (one survey of ``pipeline.gigapixel.MosaicStreamer``)
 with, per staged band (a pinned mosaic is not staged),

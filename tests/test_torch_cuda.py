@@ -440,6 +440,19 @@ def test_cuda_stream_session_from_spawned_producers_matches_plain(cuda):
     tc.stream_checks()
 
 
+def _stream_ref(pool):
+    """Each pool frame's statistics from the plain path, 8 frames a call."""
+    ref = {}
+    for i in range(0, len(pool), 8):
+        stats = analyze_image(np.stack(pool[i:i + 8]), kinds=KINDS, with_renders=False,
+                              with_hist=False, device="cuda").stats
+        for j in range(len(pool[i:i + 8])):
+            ref[i + j] = {k: type(r)(**{f: None if getattr(r, f) is None else getattr(r, f)[j]
+                                        for f in r.__dataclass_fields__})
+                          for k, r in stats.items()}
+    return ref
+
+
 @pytest.mark.cuda
 def test_cuda_paced_stream_hands_out_finished_batches(cuda):
     """1080p frames at 300 frames/s for about 2 s into a batch-8, depth-2
@@ -454,14 +467,7 @@ def test_cuda_paced_stream_hands_out_finished_batches(cuda):
 
     fps, n_frames, pool_size = 300, 600, 16
     pool = [tc.stream_frame(0, seq) for seq in range(pool_size)]
-    ref = {}
-    for i in range(0, pool_size, 8):
-        stats = analyze_image(np.stack(pool[i:i + 8]), kinds=KINDS, with_renders=False,
-                              with_hist=False, device="cuda").stats
-        for j in range(8):
-            ref[i + j] = {k: type(r)(**{f: None if getattr(r, f) is None else getattr(r, f)[j]
-                                        for f in r.__dataclass_fields__})
-                          for k, r in stats.items()}
+    ref = _stream_ref(pool)
     an = StreamAnalyzer(frame_shape=tc.STREAM_SHAPE, kinds=KINDS, batch=8, depth=2)
     an.warmup()
     limit = an.depth * an.batch
@@ -502,6 +508,180 @@ def test_cuda_paced_stream_hands_out_finished_batches(cuda):
     assert len(held) == n_frames
     p95 = held[int(0.95 * (len(held) - 1))]
     assert p95 < 0.010, f"stream.held p95 {p95 * 1e3:.2f} ms"
+
+
+@pytest.mark.cuda
+def test_cuda_paced_frames_dispatch_alone_and_the_window_captures_nothing(cuda):
+    """64 1080p frames at 100 frames/s into a batch-8, depth-2 analyzer
+    after ``warmup()``, ``pop_ready`` after each ``submit`` and its results
+    read to the host as they come (the open cell's loop): the card is free
+    at every frame and the caller waits most of each frame's 10 ms, so the
+    frames go alone (nine in ten at least: a frame the host reaches late,
+    after a stall, waits for the next), each batch one of the free-card
+    rule's dispatches; ids in order, each frame's statistics the plain
+    path's; and ``GRAPHS`` captures nothing, runs nothing eagerly and adds
+    no member in the run."""
+    from rgnir_torch.kernels.pipeline import GRAPHS
+    from rgnir_torch.pipeline.streaming import StreamAnalyzer
+    from rgnir_torch.utils import profiling
+
+    fps, n_frames, pool_size = 100, 64, 16
+    pool = [tc.stream_frame(0, seq) for seq in range(pool_size)]
+    ref = _stream_ref(pool)
+    an = StreamAnalyzer(frame_shape=tc.STREAM_SHAPE, kinds=KINDS, batch=8, depth=2)
+    an.warmup()
+    sizes = tc.sized_steps(an)
+    names = ("captures", "members", "eager_fallbacks", "eager_calls")
+    before = {k: getattr(GRAPHS, k) for k in names}
+    got = []
+
+    def read(ready):
+        if ready:
+            torch.stack([r.stats[k].mean for r in ready for k in KINDS]).cpu()
+            got.extend(ready)
+
+    with profiling.recording() as rec:
+        start = time.perf_counter()
+        for g in range(n_frames):
+            wait = start + g / fps - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            r = an.submit(pool[g % pool_size])
+            read(([r] if r is not None else []) + list(an.pop_ready()))
+        read(list(an.drain()))
+    assert {k: getattr(GRAPHS, k) - before[k] for k in names} == dict.fromkeys(names, 0)
+    assert sum(sizes) == n_frames and sizes.count(1) >= 0.9 * n_frames, sizes
+    assert (rec.counts.get("stream.idle_dispatches", 0)
+            + rec.counts.get("stream.partial_dispatches", 0) == an.dispatches == len(sizes))
+    assert [r.frame_id for r in got] == list(range(n_frames))
+    for res in got:
+        for k in KINDS:
+            tc.check_stats(f"paced frame {res.frame_id} {k}", res.stats[k],
+                           ref[res.frame_id % pool_size][k], with_hist=False)
+
+
+@pytest.mark.cuda
+def test_cuda_frames_behind_a_busy_card_come_in_batches(cuda):
+    """17 1080p frames submitted back to back into a batch-8 analyzer
+    while a spin kernel holds the card: the first goes alone (the card
+    counts as free before any dispatch) and queues behind the spin, and
+    the rest fill their slots and go as two full batches; ids in order,
+    each frame's statistics the plain path's."""
+    from rgnir_torch.pipeline.streaming import StreamAnalyzer
+    from rgnir_torch.utils import profiling
+
+    n_frames = 17
+    pool = [tc.stream_frame(1, seq) for seq in range(n_frames)]
+    ref = _stream_ref(pool)
+    an = StreamAnalyzer(frame_shape=tc.STREAM_SHAPE, kinds=KINDS, batch=8, depth=2)
+    an.warmup()
+    sizes = tc.sized_steps(an)
+    cycles = 800_000_000
+    spin = _spin_seconds(cycles)
+    got = []
+    with profiling.recording() as rec:
+        t0 = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        for f in pool:
+            r = an.submit(f)
+            got += ([r] if r is not None else []) + list(an.pop_ready())
+        submitted = time.perf_counter() - t0
+        got += list(an.drain())
+    assert submitted < spin / 2, (submitted, spin)
+    assert sizes == [1, 8, 8], sizes
+    assert rec.counts.get("stream.idle_dispatches") == 1
+    assert "stream.partial_dispatches" not in rec.counts
+    assert [r.frame_id for r in got] == list(range(n_frames))
+    for res in got:
+        for k in KINDS:
+            tc.check_stats(f"busy frame {res.frame_id} {k}", res.stats[k],
+                           ref[res.frame_id][k], with_hist=False)
+
+
+@pytest.mark.cuda
+def test_cuda_frames_back_to_back_on_an_idle_card_come_in_batches(cuda):
+    """17 1080p frames submitted back to back into a batch-8 analyzer with
+    the card idle: the first goes alone (nothing dispatched yet); the
+    caller never waits after it, so the host has no time to spend a
+    dispatch a frame and the slots fill to full batches, though each pass
+    ends long before the next frame is staged; ids in order, each frame's
+    statistics the plain path's."""
+    from rgnir_torch.pipeline.streaming import StreamAnalyzer
+
+    n_frames = 17
+    pool = [tc.stream_frame(3, seq) for seq in range(n_frames)]
+    ref = _stream_ref(pool)
+    an = StreamAnalyzer(frame_shape=tc.STREAM_SHAPE, kinds=KINDS, batch=8, depth=2)
+    an.warmup()
+    sizes = tc.sized_steps(an)
+    got = []
+    for f in pool:
+        r = an.submit(f)
+        got += ([r] if r is not None else []) + list(an.pop_ready())
+    got += list(an.drain())
+    # a thread descheduled for a dispatch's time between two frames may
+    # send a partial batch; full ones come all the same
+    assert sizes[0] == 1 and 8 in sizes and sum(sizes) == n_frames, sizes
+    assert [r.frame_id for r in got] == list(range(n_frames))
+    for res in got:
+        for k in KINDS:
+            tc.check_stats(f"back-to-back frame {res.frame_id} {k}", res.stats[k],
+                           ref[res.frame_id][k], with_hist=False)
+
+
+@pytest.mark.cuda
+def test_cuda_renders_left_queued_keep_to_the_graph_ring(cuda):
+    """40 1080p frames at 100 frames/s into a batch-8, depth-2 analyzer
+    with renders, read only from what ``submit`` returns, each result
+    dropped once read: a queued result holds its graph (its renders are
+    handed out in place), so frames go alone only while fewer than
+    ``MAX_MEMBERS`` results are queued, then the slots fill; no pass
+    falls back to the eager one, and each frame's renders are the eager
+    kernel pass's and its statistics the plain path's. (A frame the host
+    reaches late, after a member's capture, may wait for the next: the
+    first sizes may be pairs.)"""
+    from rgnir_torch.kernels import pipeline as kp
+    from rgnir_torch.kernels.graph import MAX_MEMBERS
+    from rgnir_torch.pipeline.streaming import StreamAnalyzer
+
+    fps, n_frames, pool_size = 100, 40, 8
+    pool = [tc.stream_frame(2, seq) for seq in range(pool_size)]
+    ref = _stream_ref(pool)
+    parsed = tuple(IndexKind.parse(k) for k in KINDS)
+    renders = kp._analyze_eager(torch.from_numpy(np.stack(pool)).cuda(), parsed, True, False,
+                                None, True).renders
+    an = StreamAnalyzer(frame_shape=tc.STREAM_SHAPE, kinds=KINDS, batch=8, depth=2,
+                        with_renders=True)
+    an.warmup()
+    sizes = tc.sized_steps(an)
+    before = kp.GRAPHS.eager_fallbacks
+    ids = []
+
+    def check(res):
+        j = res.frame_id % pool_size
+        for k in KINDS:
+            assert torch.equal(res.renders[k], renders[k][j]), (res.frame_id, k)
+            tc.check_stats(f"queued frame {res.frame_id} {k}", res.stats[k], ref[j][k],
+                           with_hist=False)
+        ids.append(res.frame_id)
+
+    start = time.perf_counter()
+    for g in range(n_frames):
+        wait = start + g / fps - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        r = an.submit(pool[g % pool_size])
+        if r is not None:
+            check(r)
+        r = None
+    for r in an.drain():
+        check(r)
+    r = None
+    assert kp.GRAPHS.eager_fallbacks == before
+    first_full = sizes.index(8)
+    assert sizes[0] == 1 and first_full <= MAX_MEMBERS, sizes
+    assert set(sizes[first_full:-1]) == {8} and sum(sizes) == n_frames, sizes
+    assert ids == list(range(n_frames))
 
 
 def _batch_dir(root):

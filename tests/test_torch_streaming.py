@@ -11,6 +11,8 @@ does for the JAX package.
 
 import multiprocessing as mp
 import os
+import time
+import types
 
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from rgnir_tpu.pipeline.streaming import StreamAnalyzer as JaxStreamAnalyzer
 from rgnir_torch.native import FrameRing
 from rgnir_torch.pipeline import streaming as tstreaming
 from rgnir_torch.pipeline.streaming import StreamAnalyzer
+from rgnir_torch.utils import profiling
 from torch_parity import assert_stats_match, host
 from torch_producers import push_random, push_striped, random_frames, striped_frame
 
@@ -361,3 +364,250 @@ def test_run_from_rings_keeps_ring_order_and_every_frame_once(monkeypatch, finis
     for si, seq, res in got:
         k = round(float(res.stats["NDVI"].coverage_pct) * shape[0] / 100.0)
         assert k == 3 * si + seq + 1, (si, seq)
+
+
+# --- the free-card rule: a partial batch goes when the card is free --------------------
+
+def _sized(analyzer, monkeypatch):
+    """Record the size of every batch ``analyzer`` analyses, in order;
+    returns the list it fills."""
+    sizes = []
+    step = analyzer._step
+    monkeypatch.setattr(analyzer, "_step", lambda frames: sizes.append(len(frames)) or step(frames))
+    return sizes
+
+
+def _scripted_card(analyzer, monkeypatch, host_free=True):
+    """Script the card for a CPU analyzer: each dispatch gets a new
+    ``_Pending`` marker, and ``_card_free`` answers as on CUDA, free before
+    any dispatch and once the newest dispatch's marker says finished; the
+    host counts as free too unless ``host_free`` is False. Returns the
+    markers (in dispatch order) and the sizes of the batches analysed."""
+    markers = _pending_markers(analyzer, monkeypatch)
+    monkeypatch.setattr(analyzer, "_card_free",
+                        lambda: analyzer._last_finish is None or analyzer._last_finish.query())
+    if host_free:
+        monkeypatch.setattr(analyzer, "_host_free", lambda: True)
+    return markers, _sized(analyzer, monkeypatch)
+
+
+def _finish_all(markers):
+    """Every batch dispatched so far finished, as one stream in order
+    finishes them."""
+    for m in markers:
+        m.done = True
+
+
+def _stream(analyzer, frames, before_each=lambda g: None):
+    """``submit`` then ``pop_ready`` for each frame, then ``drain``."""
+    out = []
+    for g, f in enumerate(frames):
+        before_each(g)
+        r = analyzer.submit(f)
+        out += ([r] if r is not None else []) + list(analyzer.pop_ready())
+    return out + list(analyzer.drain())
+
+
+def _match_jax(got, frames, kinds):
+    """Every frame once, in order, with the JAX package's statistics."""
+    ref = JaxStreamAnalyzer(frame_shape=SHAPE, kinds=kinds, depth=2, batch=4)
+    _assert_results_match(got, _submit_all(ref, frames), kinds, with_renders=False)
+
+
+def test_free_card_sends_each_frame_alone(monkeypatch):
+    """With every batch finished by the next frame, a batch-4 analyzer
+    sends each frame alone, each one of the rule's dispatches."""
+    kinds = ("NDVI", "GNDVI")
+    frames = _frames(9, seed=21)
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=kinds, depth=2, batch=4, device="cpu")
+    markers, sizes = _scripted_card(port, monkeypatch)
+    with profiling.recording() as rec:
+        got = _stream(port, frames, lambda g: _finish_all(markers))
+    assert sizes == [1] * 9 and port.dispatches == 9
+    assert rec.counts.get("stream.idle_dispatches") == 9
+    assert "stream.partial_dispatches" not in rec.counts
+    _match_jax(got, frames, kinds)
+
+
+def test_busy_card_fills_the_slot_to_batch(monkeypatch):
+    """With no batch ever finished, the first frame goes alone (the card
+    counts as free before any dispatch), then each slot fills to ``batch``
+    and goes full; the rest leaves through ``drain``."""
+    kinds = ("NDVI",)
+    frames = _frames(10, seed=22)
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=kinds, depth=2, batch=4, device="cpu")
+    markers, sizes = _scripted_card(port, monkeypatch)
+    with profiling.recording() as rec:
+        got = _stream(port, frames)
+    assert sizes == [1, 4, 4, 1] and len(markers) == 4
+    assert rec.counts.get("stream.idle_dispatches") == 1
+    assert rec.counts.get("stream.partial_dispatches") == 1
+    _match_jax(got, frames, kinds)
+
+
+def test_card_freed_mid_slot_sends_what_is_staged(monkeypatch):
+    """A batch that finishes while frames are staged lets the next frame
+    go with them, however few; a slot that fills first goes full."""
+    kinds = ("NDVI", "NDWI")
+    frames = _frames(11, seed=23)
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=kinds, depth=2, batch=4, device="cpu")
+    markers, sizes = _scripted_card(port, monkeypatch)
+
+    def free_at(g):
+        if g in (3, 9):  # frames 1-2, then 8, staged behind a pending batch
+            _finish_all(markers)
+
+    with profiling.recording() as rec:
+        got = _stream(port, frames, free_at)
+    # 0 alone; 1-3 when the card frees; 4-7 fill the slot; 9 waits while
+    # 1-7 are queued (MAX_MEMBERS or more), and 8-10 go once they leave
+    assert sizes == [1, 3, 4, 3]
+    assert rec.counts.get("stream.idle_dispatches") == 3
+    assert "stream.partial_dispatches" not in rec.counts
+    assert [r.frame_id for r in got] == list(range(11))
+    _match_jax(got, frames, kinds)
+
+
+def test_free_card_fill_and_held_per_frame(monkeypatch):
+    """Under the rule every frame still has one ``stream.fill`` ending
+    at its batch's dispatch and one ``stream.held`` starting there."""
+    frames = _frames(7, seed=24)
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=("NDVI",), depth=1, batch=3, device="cpu")
+    markers, sizes = _scripted_card(port, monkeypatch)
+    with profiling.recording() as rec:
+        got = _stream(port, frames, lambda g: g == 4 and setattr(markers[-1], "done", True))
+    assert sizes == [1, 3, 1, 2]  # 0; 1-3 full; 4 when the card frees; 5-6 by drain
+    assert [r.frame_id for r in got] == list(range(7))
+    fill = {s.attrs["frame_id"]: s for s in rec.named("stream.fill")}
+    held = {s.attrs["frame_id"]: s for s in rec.named("stream.held")}
+    assert sorted(fill) == sorted(held) == list(range(7))
+    for i in range(7):
+        assert fill[i].start_ns <= fill[i].end_ns == held[i].start_ns <= held[i].end_ns
+    assert port._dispatched_ns == {}
+
+
+def test_run_from_rings_under_the_rule_keeps_every_frame_once(monkeypatch):
+    """Two rings into a batch-4 analyzer whose batches finish at their
+    marker's second query: the first frame goes alone, every frame once,
+    each ring in order, frame ids in order, each result its frame's."""
+    shape, per_ring = (32, 16, 3), 5
+    port = StreamAnalyzer(frame_shape=shape[:2], kinds=("NDVI",), batch=4, depth=1,
+                          device="cpu")
+    _, sizes = _scripted_card(port, monkeypatch)
+
+    class Late:
+        def __init__(self):
+            self.asked = 0
+
+        def query(self):
+            self.asked += 1
+            return self.asked > 1
+
+    monkeypatch.setattr(port, "_finish_marker", Late)
+    with FrameRing.create(f"/rgnir_torch_rule_r0_{_PID}", shape, capacity=8) as r0, \
+            FrameRing.create(f"/rgnir_torch_rule_r1_{_PID}", shape, capacity=8) as r1:
+        for seq in range(per_ring):
+            assert r0.try_push(striped_frame(shape, 0, seq))
+            assert r1.try_push(striped_frame(shape, 1, seq))
+        r0.finish()
+        r1.finish()
+        got = list(port.run_from_rings([r0, r1], max_latency_s=0.01))
+    assert sizes[0] == 1 and sum(sizes) == 2 * per_ring and max(sizes) <= 4
+    for si in range(2):
+        assert [seq for s, seq, _ in got if s == si] == list(range(per_ring))
+    assert [r.frame_id for _, _, r in got] == list(range(2 * per_ring))
+    for si, seq, res in got:
+        k = round(float(res.stats["NDVI"].coverage_pct) * shape[0] / 100.0)
+        assert k == 3 * si + seq + 1, (si, seq)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 4])
+def test_cpu_step_keeps_the_jax_grouping(monkeypatch, batch):
+    """On the CPU the step is synchronous and the card is never counted
+    free: batches go full, the remainder through ``drain``, as the JAX
+    package groups them, and the rule dispatches nothing."""
+    frames = _frames(10, seed=25)
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=("NDVI",), depth=2, batch=batch,
+                          device="cpu")
+    sizes = _sized(port, monkeypatch)
+    assert not port._card_free()
+    with profiling.recording() as rec:
+        got = _stream(port, frames)
+    assert not port._card_free()
+    assert sizes == [batch] * (10 // batch) + ([10 % batch] if 10 % batch else [])
+    assert "stream.idle_dispatches" not in rec.counts
+    assert [r.frame_id for r in got] == list(range(10))
+
+
+def test_free_card_waits_while_the_graph_ring_is_queued(monkeypatch):
+    """A caller that leaves results in the queue (``submit`` alone, each
+    returning the oldest beyond ``depth`` batches): with every batch
+    finished, the first ``MAX_MEMBERS`` frames go alone, then the queue
+    holds that many results and the slots fill to ``batch``, so no key
+    needs more graphs than its ring may have; every frame once, in
+    order, with the JAX package's statistics."""
+    kinds = ("NDVI",)
+    frames = _frames(20, seed=26)
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=kinds, depth=2, batch=4, device="cpu")
+    markers, sizes = _scripted_card(port, monkeypatch)
+    got = []
+    with profiling.recording() as rec:
+        for f in frames:
+            _finish_all(markers)
+            r = port.submit(f)
+            got += [r] if r is not None else []
+        got += list(port.drain())
+    m = tstreaming.MAX_MEMBERS
+    assert sizes[:m] == [1] * m and set(sizes[m:]) == {4} and sum(sizes) == 20
+    assert rec.counts.get("stream.idle_dispatches") == m
+    _match_jax(got, frames, kinds)
+
+
+def test_free_card_waits_for_the_host_to_afford_a_dispatch(monkeypatch):
+    """With the card always free, a frame goes alone only once the host
+    has spent outside the analyzer, since the last dispatch ended, the
+    time a dispatch takes (0.6 ms here); a caller behind its frames, which
+    comes straight back, fills the slot: 0 (no dispatch yet) and 1 (1 ms
+    away) alone, 2-4 once their 0.2-0.3 ms add up to 0.7 ms, 5-8 back to
+    back as a full slot; 9 (2 ms away) is staged while 5-8 are queued
+    (``MAX_MEMBERS`` results) and goes with 10 once they have left."""
+    kinds = ("NDVI",)
+    frames = _frames(11, seed=27)
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=kinds, depth=2, batch=4, device="cpu")
+    markers, sizes = _scripted_card(port, monkeypatch, host_free=False)
+    clock = [0.0]
+    monkeypatch.setattr(tstreaming, "time", types.SimpleNamespace(
+        perf_counter=lambda: clock[0], perf_counter_ns=time.perf_counter_ns))
+    step = port._step
+
+    def dispatch(f):  # each dispatch holds the host 0.6 ms
+        clock[0] += 6e-4
+        return step(f)
+
+    monkeypatch.setattr(port, "_step", dispatch)
+    away = [0, 1e-3, 2e-4, 2e-4, 3e-4, 0, 0, 0, 0, 2e-3, 0]
+
+    def before(g):
+        _finish_all(markers)
+        clock[0] += away[g]
+
+    assert port._host_free()
+    with profiling.recording() as rec:
+        got = _stream(port, frames, before)
+    assert sizes == [1, 1, 3, 4, 2]
+    assert rec.counts.get("stream.idle_dispatches") == 4
+    assert "stream.partial_dispatches" not in rec.counts
+    _match_jax(got, frames, kinds)
+
+
+def test_ring_loops_idle_sleep_counts_as_the_hosts_slack():
+    """A ring loop's sleep while every ring is empty is time the host
+    spends outside the analyzer: once it adds up to a dispatch's time, the
+    host counts as free."""
+    port = StreamAnalyzer(frame_shape=SHAPE, kinds=("NDVI",), batch=4, device="cpu")
+    port._dispatch_s = 0.002  # the least a dispatch has taken
+    assert not port._host_free()
+    port._idle(0.001)
+    assert not port._host_free()
+    port._idle(0.0015)
+    assert port._host_free()

@@ -1071,6 +1071,15 @@ def check_stream_results(what, results, kinds):
                             with_hist=False)
 
 
+def sized_steps(analyzer):
+    """Record the size of every batch ``analyzer`` sends to the card, in
+    order; returns the list it fills."""
+    sizes = []
+    step = analyzer._step
+    analyzer._step = lambda frames: sizes.append(len(frames)) or step(frames)
+    return sizes
+
+
 def stream_launches(what, analyzer, fn):
     """``fn`` with every kernel's count set to 0 just before and read
     just after; each dispatch must launch ``GROUP_LAUNCHES``."""
@@ -1092,10 +1101,13 @@ def stream_checks():
     profiler, once not; (ii) one producer at 30 fps for 60 frames into a
     batch-1, depth-2 analyzer to the end of its stream: every frame,
     frames 0 and 59 against the plain path; (iii) three frames from two
-    rings into a batch-8 analyzer with ``max_frames=3``: one partial
-    dispatch, routed, against the plain path."""
+    rings into a batch-8 analyzer with ``max_frames=3``: no full batch,
+    the first frame alone (the card is free before any dispatch), every
+    dispatch the free-card rule's or ``drain``'s partial batch, routed,
+    against the plain path."""
     from rgnir_torch.native import FrameRing
     from rgnir_torch.pipeline.streaming import StreamAnalyzer
+    from rgnir_torch.utils import profiling
 
     shape = STREAM_SHAPE + (3,)
     tag = f"/rgnir_card_{os.getpid()}"
@@ -1147,18 +1159,25 @@ def stream_checks():
 
     # (iii) three frames from two rings into a batch-8 analyzer
     analyzer = StreamAnalyzer(frame_shape=STREAM_SHAPE, kinds=KINDS, batch=STREAM_BATCH)
+    sizes = sized_steps(analyzer)
     with FrameRing.create(f"{tag}_p0", shape, 2) as r0, \
             FrameRing.create(f"{tag}_p1", shape, 2) as r1:
         for seq in range(2):
             require(r0.try_push(stream_frame(0, seq)), "stream (iii): push")
         require(r1.try_push(stream_frame(1, 0)), "stream (iii): push")
-        part, _, dispatches = stream_launches(
-            "stream (iii)", analyzer,
-            lambda: list(analyzer.run_from_rings([r0, r1], max_frames=3)))
+        with profiling.recording() as rec:
+            part, _, dispatches = stream_launches(
+                "stream (iii)", analyzer,
+                lambda: list(analyzer.run_from_rings([r0, r1], max_frames=3)))
     require([(si, seq) for si, seq, _ in part] == [(0, 0), (1, 0), (0, 1)],
             "stream (iii): routing")
-    require([r.frame_id for _, _, r in part] == [0, 1, 2] and dispatches == 1,
-            "stream (iii): one partial batch")
+    idle = rec.counts.get("stream.idle_dispatches", 0)
+    partial = rec.counts.get("stream.partial_dispatches", 0)
+    require([r.frame_id for _, _, r in part] == [0, 1, 2] and sizes[0] == 1
+            and sum(sizes) == 3 and dispatches == len(sizes) == idle + partial
+            and partial <= 1,
+            f"stream (iii): the rule's dispatches, sizes {sizes}, idle {idle}, "
+            f"partial {partial}")
     check_stream_results("stream (iii)", part, KINDS)
     torch.cuda.empty_cache()
 
